@@ -1,0 +1,527 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (built for an H100).
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases, each printing its own line; any failure exits non-zero:
+
+1. Build every CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc
+   for sm_90a (one nvcc per source, started together) and print the card's
+   name and power limit.
+2. Hold each kernel against its plain PyTorch version at main-path shapes
+   (stablelm-3b: KH 32, G 1, head_dim 80, block_size 16), time kernel,
+   plain version and the PyTorch library yardstick, and compute each
+   kernel's bound (the least time the card could take for the same work).
+3. Serve a seeded 32-request trace on the full-width stablelm-3b engine in
+   bf16 (WFE, use_kernel=True) and check the serving invariants and that
+   both kernels were launched; then check the model step against the
+   plain path on the CPU at full width and reduced depth.
+4. A WFE forced-slow-path run at reduced depth.
+
+The line before the last is the ``kernels`` JSON line; the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
+non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# fp32 products at full precision in every comparison below
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+#: H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor FLOP/s, f32
+#: FLOP/s outside the tensor cores, and int32 ops/s on the CUDA cores (half
+#: as many INT32 as FP32 lanes per SM and one op per lane per clock, against
+#: two FLOPs per FP32 FMA: 67 / 4 TOP/s)
+HBM_BPS = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int32: 16.75e12}
+
+SEED = 0
+FAILED: list = []
+
+
+def phase(name: str, ok: bool, detail: str = "") -> None:
+    print(f"[{'PASS' if ok else 'FAIL'}] {name}" + (f": {detail}" if detail else ""),
+          flush=True)
+    if not ok:
+        FAILED.append(name)
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time per call from CUDA events around ``reps`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def gpu_name_and_limit() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=30)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else \
+        f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+# ------------------------------------------------------------ phase 2: kernels
+def attention_case(dtype, b, c, nblk, layers, gen, dev):
+    """Main-path-shaped operands: (layers, N, bs, KH, D) pools (one pool per
+    layer, rotated so consecutive launches read other pages, as the layer
+    loop does), random permuted tables, ragged contexts."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("stablelm-3b")
+    kh, d, g, bs = cfg.n_kv_heads, cfg.resolved_head_dim, 1, 16
+    n = b * nblk + 1
+    k = torch.randn((layers, n, bs, kh, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((layers, n, bs, kh, d), generator=gen, device=dev).to(dtype)
+    q = torch.randn((b, c, kh, g, d), generator=gen, device=dev).to(dtype)
+    perm = torch.randperm(n - 1, generator=gen, device=dev)[: b * nblk]
+    tables = perm.reshape(b, nblk).to(torch.int32).contiguous()
+    # ragged contexts up to the trace's longest request (1024 + 64 tokens)
+    hi = min(nblk * bs, 1088) - c
+    ctx = torch.randint(0, hi + 1, (b, 1), generator=gen, device=dev)
+    qpos = (ctx + torch.arange(c, device=dev)[None, :]).to(torch.int32)
+    live = (qpos.max(dim=1).values // bs + 1).to(torch.int32)
+    return dict(k=k, v=v, q=q, tables=tables, qpos=qpos, live=live, bs=bs,
+                scale=1.0 / math.sqrt(d))
+
+
+def attention_bound_ms(case) -> tuple:
+    """Least time for the work: bytes (q, the live K/V pages, tables,
+    positions, output) over HBM, or 4*D flops per visible (query, key) pair
+    over the input type's peak; the larger of the two."""
+    q, k, tables, qpos, live, bs = (case["q"], case["k"], case["tables"],
+                                    case["qpos"], case["live"], case["bs"])
+    b, c, kh, g, d = q.shape
+    el = q.element_size()
+    page = bs * kh * d * el
+    nbytes = (2 * q.numel() * el + 2 * int(live.sum()) * page
+              + 4 * (tables.numel() + qpos.numel() + live.numel()))
+    visible = torch.minimum(qpos.long() + 1, (live.long() * bs)[:, None])
+    flops = 4 * d * g * kh * int(visible.sum())
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = flops / PEAK_OPS[q.dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_ms(case, layers) -> float:
+    """One scaled_dot_product_attention call over the same work: the pages
+    are gathered into dense (B, H, S, D) K/V first (not timed)."""
+    import torch.nn.functional as F
+
+    q, tables, qpos, live, bs = (case["q"], case["tables"], case["qpos"],
+                                 case["live"], case["bs"])
+    b, c, kh, g, d = q.shape
+    w = int(live.max())
+    ks, vs = [], []
+    for l in range(layers):
+        ks.append(case["k"][l][tables[:, :w].long()].reshape(
+            b, w * bs, kh, d).transpose(1, 2).contiguous())
+        vs.append(case["v"][l][tables[:, :w].long()].reshape(
+            b, w * bs, kh, d).transpose(1, 2).contiguous())
+    qd = q[:, :, :, 0].transpose(1, 2).contiguous()  # (B, H, C, D)
+    kvpos = torch.arange(w * bs, device=q.device)
+    mask = ((kvpos[None, None, :] <= qpos[:, :, None])
+            & (kvpos[None, None, :] < (live * bs)[:, None, None]))[:, None]
+    it = [0]
+
+    def call():
+        l = it[0] % layers
+        it[0] += 1
+        F.scaled_dot_product_attention(qd, ks[l], vs[l], attn_mask=mask,
+                                       scale=case["scale"])
+
+    return time_ms(call)
+
+
+def check_attention(dtype, b, c, nblk, gen, dev, tol):
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import paged_attention_chunk_ref
+
+    layers = 8
+    case = attention_case(dtype, b, c, nblk, layers, gen, dev)
+    q, tables, qpos, live, scale = (case["q"], case["tables"], case["qpos"],
+                                    case["live"], case["scale"])
+    k0, v0 = case["k"][0], case["v"][0]
+    got = pa.paged_attention_chunk(q, k0, v0, tables, qpos, live, scale=scale)
+    want = paged_attention_chunk_ref(q, k0, v0, tables, qpos, live,
+                                     scale=scale)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    close = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    # bounded walk == unbounded walk, bitwise
+    full = torch.full_like(live, nblk)
+    unb = pa.paged_attention_chunk(q, k0, v0, tables, qpos, full, scale=scale)
+    bitwise = torch.equal(got, unb)
+    # NaN-poisoned dead table slots never reach the output
+    kp, vp = k0.clone(), v0.clone()
+    dead = torch.arange(nblk, device=dev)[None, :] >= live[:, None]
+    dead_ids = tables[dead].long()
+    kp[dead_ids] = float("nan")
+    vp[dead_ids] = float("nan")
+    poisoned = pa.paged_attention_chunk(q, kp, vp, tables, qpos, live,
+                                        scale=scale)
+    nan_safe = torch.equal(got, poisoned) and bool(torch.isfinite(got).all())
+    del kp, vp
+    tag = f"paged_attention {str(dtype).split('.')[-1]} B={b} C={c} nblk={nblk}"
+    phase(f"{tag} vs plain", close and bitwise and nan_safe,
+          f"max_abs_err={err:.3e} (tol {tol}), bounded==unbounded "
+          f"{bitwise}, NaN dead slots unread {nan_safe}")
+    it = [0]
+
+    def kern():
+        l = it[0] % layers
+        it[0] += 1
+        pa.paged_attention_chunk(q, case["k"][l], case["v"][l], tables, qpos,
+                                 live, scale=scale)
+
+    def plain():
+        l = it[0] % layers
+        it[0] += 1
+        paged_attention_chunk_ref(q, case["k"][l], case["v"][l], tables,
+                                  qpos, live, scale=scale)
+
+    saved = pa.LAUNCHES.n
+    ms = time_ms(kern)
+    plain_ms = time_ms(plain, reps=5, warmup=1)
+    lib_ms = sdpa_ms(case, layers)
+    pa.LAUNCHES.n = saved  # comparison launches do not count
+    bound, by = attention_bound_ms(case)
+    print(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms)
+
+
+def check_era_scan(r, s, gen, dev):
+    from repro_torch.core.era_table import _can_delete_numpy, batched_can_delete
+    from repro_torch.kernels import era_scan as es
+    from repro_torch.kernels.ref import INF_ERA32, era_scan_interval_ref
+
+    rng = np.random.default_rng(SEED)
+    alloc = rng.integers(0, 1000, r).astype(np.int32)
+    retire = (alloc + rng.integers(0, 100, r)).astype(np.int32)
+    lo = rng.integers(0, 1100, s).astype(np.int32)
+    hi = np.where(rng.random(s) < 0.5, lo, lo + rng.integers(0, 40, s)
+                  ).astype(np.int32)
+    lo[rng.random(s) < 0.95] = INF_ERA32  # mostly empty slots, as in serving
+    want = _can_delete_numpy(alloc, retire, lo, hi)
+    t = [torch.from_numpy(a).to(dev) for a in (alloc, retire, lo, hi)]
+    got = es.era_scan_interval(*t).cpu().numpy()
+    backend = batched_can_delete(alloc, retire, lo, hi, backend="cuda")
+    ok = np.array_equal(got, want) and np.array_equal(backend, want)
+    phase(f"era_scan R={r} S={s} vs numpy", ok,
+          f"bit-identical {ok}, {int(want.sum())} of {r} deletable")
+    saved = es.LAUNCHES.n
+    ms = time_ms(lambda: es.era_scan_interval(*t), reps=50)
+    plain_ms = time_ms(lambda: era_scan_interval_ref(*t), reps=20)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        batched_can_delete(alloc, retire, lo, hi, backend="cuda")
+    backend_ms = (time.perf_counter() - t0) / 20 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(20):
+        batched_can_delete(alloc, retire, lo, hi, backend="numpy")
+    numpy_ms = (time.perf_counter() - t0) / 20 * 1e3
+    es.LAUNCHES.n = saved
+    nbytes = 4 * (2 * r + 2 * s) + r
+    ops = 4 * r * s  # three compares and one OR per (block, slot) pair
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = ops / PEAK_OPS[torch.int32] * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    print(f"  era_scan R={r} S={s}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, bound {bound:.6f} ms ({by}); cuda backend from NumPy "
+          f"mirrors {backend_ms:.4f} ms (host clock), numpy backend "
+          f"{numpy_ms:.4f} ms (host clock)", flush=True)
+    return dict(max_abs_err=float(np.abs(got.astype(int) - want.astype(int)).max()),
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None)
+
+
+# ------------------------------------------------------------ phase 3: engine
+def trace(n_req: int, lo: int, hi: int, vocab: int, salt: int = 0):
+    """Seeded prompts: lengths from SEED, tokens from (SEED, salt), so two
+    salts give the same lengths and share no cached prefix."""
+    lens = np.random.default_rng(SEED).integers(lo, hi + 1, n_req)
+    rng = np.random.default_rng([SEED, salt])
+    return [rng.integers(0, vocab, int(n)).tolist() for n in lens]
+
+
+def serve_full_width(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import era_scan as es
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("stablelm-3b")  # full width, 32 layers, bf16
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    torch.cuda.synchronize()
+    print(f"  stablelm-3b full width: {n_params} params in {cfg.dtype}, "
+          f"init {time.perf_counter() - t0:.1f} s", flush=True)
+    n_blocks, bs, new = 2048, 16, 64
+    engine = ServeEngine(cfg, params, n_blocks=n_blocks, block_size=bs,
+                         max_batch=8, chunk_size=256, scheme="WFE",
+                         use_kernel=True, device=dev)
+    tid = engine.pool.register_thread()
+    prompts = trace(32, 64, 1024, cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path's launch counts: zeroed just before, read just after
+    pa.LAUNCHES.n = 0
+    es.LAUNCHES.n = 0
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, max_new_tokens=new) for p in prompts]
+    stats = engine.run(tid)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"paged_attention_chunk": pa.LAUNCHES.n,
+                "era_scan_interval": es.LAUNCHES.n}
+    gen_tokens = sum(len(r.generated) for r in reqs)
+    toks_ok = all(len(r.generated) == new and
+                  all(0 <= t < cfg.vocab_size for t in r.generated)
+                  for r in reqs)
+    ok = (stats["completed"] == 32 and engine.pool.unreclaimed() == 0
+          and engine.pool.free_blocks == n_blocks and toks_ok
+          and all(v > 0 for v in launches.values()))
+    steps = stats["steps"]
+    phase("serve stablelm-3b full width bf16, 32 requests", ok,
+          f"completed={stats['completed']} unreclaimed="
+          f"{engine.pool.unreclaimed()} free_blocks={engine.pool.free_blocks}"
+          f"/{n_blocks} launches={launches} steps={steps} "
+          f"prompt_tokens={sum(map(len, prompts))} generated={gen_tokens}")
+    print(f"  serve: {dt:.3f} s wall, {gen_tokens / dt:.2f} output tokens/s, "
+          f"{dt / steps * 1e3:.2f} ms/step over {steps} steps "
+          f"({stats['mixed_steps']} mixed), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on "
+          f"{gpu_name_and_limit()}", flush=True)
+    profile_window(engine, tid, cfg)
+    del engine, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _window(engine, tid, cfg, salt):
+    """Serve 8 requests (256-768-token prompts, 16 new tokens) through the
+    engine's own tick/execute_plan, timing each step on the host clock by
+    plan kind.  Returns (wall seconds, {kind: [seconds]})."""
+    for p in trace(8, 256, 768, cfg.vocab_size, salt):
+        engine.submit(p, max_new_tokens=16)
+    by_kind: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10_000):
+        if not (engine.sched.pending() or engine.sched.active):
+            break
+        plan = engine.sched.tick(tid)
+        if plan is None:
+            engine.pool.cleanup_all()
+            continue
+        ts = time.perf_counter()
+        engine.execute_plan(plan, tid)
+        by_kind.setdefault(plan.kind, []).append(time.perf_counter() - ts)
+    engine.drain(tid)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, by_kind
+
+
+def profile_window(engine, tid, cfg):
+    """Where the time goes: one 8-request window timed by step kind without
+    the profiler, then the same lengths (other tokens) under torch.profiler
+    for the device time by kernel; the device's idle share is 1 - device
+    time / the unprofiled window's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wall, by_kind = _window(engine, tid, cfg, salt=1)
+    kinds = ", ".join(f"{k}: {len(v)} steps, mean {np.mean(v) * 1e3:.2f} ms"
+                      for k, v in sorted(by_kind.items()))
+    print(f"  window: {wall:.3f} s wall; {kinds}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _window(engine, tid, cfg, salt=2)
+    names: dict = {}
+    groups = {"paged_attention kernel": 0.0, "era_scan kernel": 0.0,
+              "GEMM (cuBLAS)": 0.0, "copies": 0.0, "other kernels": 0.0}
+    for evt in prof.key_averages():
+        if evt.device_type.name != "CUDA":  # host ops: their kernels count
+            continue                        # as events of their own
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        name = evt.key.lower()
+        names[evt.key[:60]] = names.get(evt.key[:60], 0.0) + us
+        if "paged_chunk_kernel" in name:
+            groups["paged_attention kernel"] += us
+        elif "era_scan_kernel" in name:
+            groups["era_scan kernel"] += us
+        elif "memcpy" in name or "memset" in name:
+            groups["copies"] += us
+        elif any(t in name for t in ("gemm", "xmma", "cutlass", "sm90_", "nvjet")):
+            groups["GEMM (cuBLAS)"] += us
+        else:
+            groups["other kernels"] += us
+    busy = sum(groups.values()) / 1e6
+    if busy == 0:
+        print("  profile: device time not measured (no CUDA events)")
+        return
+    shares = ", ".join(f"{k} {v / 1e6:.3f} s ({v / 1e6 / wall:.1%})"
+                       for k, v in groups.items())
+    print(f"  device time by kind (profiled window) against the unprofiled "
+          f"{wall:.3f} s: {shares}; device busy {busy / wall:.1%}, idle "
+          f"{1 - busy / wall:.1%}", flush=True)
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
+    print("  top device kernels: " + "; ".join(
+        f"{k} {v / 1e3:.1f} ms" for k, v in top), flush=True)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def step_matches_cpu(dev):
+    """Full-width, 2-layer fp32 model: one prefill chunk and one decode
+    step on the card (CUDA kernels) against the same step on the CPU
+    (plain versions), from the same weights and pools."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import init_pools, paged_decode_step, paged_prefill_chunk
+
+    cfg = get_config("stablelm-3b").scaled(n_layers=2, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    bs, n = 16, 16
+    prompt = torch.tensor([trace(1, 100, 100, cfg.vocab_size)[0]],
+                          dtype=torch.int32)
+    c = prompt.shape[1]
+    tables = torch.arange(8, dtype=torch.int32)[None, :]
+    pos = torch.arange(c, dtype=torch.int32)[None, :]
+    out = {}
+    for d in ("cpu", dev):
+        p = {k: _to(v, d) for k, v in params.items()}
+        pools = init_pools(cfg, n, bs, device=d)
+        lg1, _ = paged_prefill_chunk(cfg, p, pools, tables.to(d),
+                                     prompt.to(d), pos.to(d))
+        nxt = torch.argmax(lg1, dim=-1).to(torch.int32)
+        lg2, _ = paged_decode_step(
+            cfg, p, pools, tables.to(d), torch.tensor([c + 1], dtype=torch.int32, device=d),
+            nxt.to(d), torch.tensor([c], dtype=torch.int32, device=d))
+        out[str(d)] = (lg1.cpu(), lg2.cpu())
+    (a1, a2), (b1, b2) = out["cpu"], out[str(dev)]
+    err = max((a1 - b1).abs().max().item(), (a2 - b2).abs().max().item())
+    finite = bool(torch.isfinite(b1).all() and torch.isfinite(b2).all())
+    shape_ok = b1.shape == (1, cfg.vocab_size) and b2.shape == (1, cfg.vocab_size)
+    tol = 2e-3
+    phase("full-width 2-layer fp32 step: CUDA vs CPU plain path",
+          err <= tol and finite and shape_ok,
+          f"max_abs_err={err:.3e} (tol {tol}), finite={finite}")
+
+
+def _to(tree, d):
+    if isinstance(tree, dict):
+        return {k: _to(v, d) for k, v in tree.items()}
+    return tree.to(d)
+
+
+def forced_slow_path(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import era_scan as es
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("stablelm-3b").scaled(n_layers=2)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+    engine = ServeEngine(cfg, params, n_blocks=64, block_size=16, max_batch=4,
+                         chunk_size=64, scheme="WFE", use_kernel=True,
+                         device=dev, vectorized_threshold=1, era_freq=1,
+                         cleanup_freq=1, max_attempts=1)
+    tid = engine.pool.register_thread()
+    before = es.LAUNCHES.n
+    reqs = [engine.submit(p, 8) for p in trace(8, 16, 96, cfg.vocab_size)]
+    stats = engine.run(tid)
+    slow = engine.pool.smr.stats()["slow_paths"]
+    scans = es.LAUNCHES.n - before
+    ok = (stats["completed"] == len(reqs) and slow > 0 and scans > 0
+          and engine.pool.unreclaimed() == 0 and engine.pool.free_blocks == 64)
+    phase("WFE forced slow path, 2 layers", ok,
+          f"completed={stats['completed']} slow_paths={slow} "
+          f"era_scan launches={scans} unreclaimed={engine.pool.unreclaimed()}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    lib = build.build(verbose=True)
+    phase("build", True, f"{lib.name} in {time.perf_counter() - t0:.1f} s "
+          f"from {len(build.sources())} sources")
+    print(gpu_name_and_limit(), flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    attn = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        # decode (C == 1, B == max_batch) and a mixed step (max_batch + 1
+        # rows of one 256-token chunk bucket); table width bucket 128
+        for b, c in ((8, 1), (9, 256)):
+            attn[(dtype, c)] = check_attention(dtype, b, c, 128, gen, dev, tol)
+    scan = check_era_scan(4096, 512, gen, dev)
+    check_era_scan(4096, 5120, gen, dev)  # kernel_bench.py:38 (T 512 x H 10)
+    check_era_scan(64, 64, gen, dev)      # the engine's scans: 8 threads x 8 slots
+    torch.cuda.empty_cache()
+
+    launches = serve_full_width(dev)
+    step_matches_cpu(dev)
+    forced_slow_path(dev)
+
+    head = attn[(torch.bfloat16, 1)]
+    kernels = [
+        dict(name="paged_attention_chunk", route="cuda",
+             source="src/repro_torch/kernels/csrc/paged_attention.cu",
+             replaces="src/repro/kernels/paged_attention.py:148",
+             launches=launches["paged_attention_chunk"], **head),
+        dict(name="era_scan_interval", route="cuda",
+             source="src/repro_torch/kernels/csrc/era_scan.cu",
+             replaces="src/repro/kernels/era_scan.py:96",
+             launches=launches["era_scan_interval"], **scan),
+    ]
+    if FAILED:
+        print(f"chip_smoke: FAILED phases: {FAILED}", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

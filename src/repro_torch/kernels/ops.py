@@ -1,0 +1,69 @@
+"""Selectors between each CUDA kernel and its plain PyTorch version.
+
+They dispatch on the device of the tensors they are given: a CPU tensor
+goes to the plain version (``ref``), a CUDA tensor to the kernel, which
+launches or raises.  There is no fallback from the kernel to the plain
+version.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import era_scan, paged_attention, ref
+
+__all__ = ["can_delete_blocks_interval", "paged_decode_attention",
+           "paged_chunk_attention"]
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def can_delete_blocks_interval(alloc_eras, retire_eras, res_lo, res_hi, *,
+                               device="cuda") -> np.ndarray:
+    """The era table's ``torch`` (``device="cpu"``) and ``cuda`` backends.
+
+    Takes the NumPy int32 mirrors, runs the scan on ``device`` and returns
+    the (R,) bool mask as NumPy.  On CUDA the mirrors are copied to the
+    card and the mask back; that copy is part of the backend's cost.
+    """
+    args = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+            for a in (alloc_eras, retire_eras, res_lo, res_hi)]
+    if _on_cpu(args[0]):
+        mask = ref.era_scan_interval_ref(*args)
+    else:
+        mask = era_scan.era_scan_interval(*args)
+    return mask.cpu().numpy()
+
+
+def paged_decode_attention(q, k_pool, v_pool, tables, lengths,
+                           num_live_blocks=None, *,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Decode attention over the paged pool.  q (B,KH,G,D) -> (B,KH,G,D)."""
+    if _on_cpu(q):
+        return ref.paged_attention_ref(q, k_pool, v_pool, tables, lengths,
+                                       num_live_blocks, scale=scale)
+    return paged_attention.paged_attention(q, k_pool, v_pool, tables, lengths,
+                                           num_live_blocks, scale=scale)
+
+
+def paged_chunk_attention(q, k_pool, v_pool, tables, q_positions,
+                          num_live_blocks=None, *,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Chunked-prefill attention over the paged pool.  q (B,C,KH,G,D) ->
+    (B,C,KH,G,D); a query at absolute position p sees pool tokens at
+    positions <= p within its first ``num_live_blocks[b]`` table slots."""
+    if _on_cpu(q):
+        return ref.paged_attention_chunk_ref(q, k_pool, v_pool, tables,
+                                             q_positions, num_live_blocks,
+                                             scale=scale)
+    return paged_attention.paged_attention_chunk(
+        q, k_pool, v_pool, tables, q_positions, num_live_blocks, scale=scale)
