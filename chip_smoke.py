@@ -10,10 +10,14 @@ Phases, each printing its own line; any failure exits non-zero:
 2. Hold each kernel against its plain PyTorch version at main-path shapes
    (stablelm-3b: KH 32, G 1, head_dim 80, block_size 16), time kernel,
    plain version and the PyTorch library yardstick, and compute each
-   kernel's bound (the least time the card could take for the same work).
+   kernel's bound (the least time the card could take for the same work):
+   paged attention over bf16/f32 pools and over int8 pools (fused dequant),
+   the era scan, and dense flash attention at the stablelm-3b and
+   starcoder2-3b prefill shapes.
 3. Serve a seeded 32-request trace on the full-width stablelm-3b engine in
    bf16 (WFE, use_kernel=True) and check the serving invariants and that
-   both kernels were launched; then check the model step against the
+   the path's kernels were launched; then (3b) the same trace on the same
+   weights with int8 KV pages.  Then check the model step against the
    plain path on the CPU at full width and reduced depth.
 4. A WFE forced-slow-path run at reduced depth.
 
@@ -83,15 +87,19 @@ def gpu_name_and_limit() -> str:
 
 
 # ------------------------------------------------------------ phase 2: kernels
-def attention_case(dtype, b, c, nblk, layers, gen, dev):
+def attention_case(dtype, b, c, nblk, layers, dev, int8=False):
     """Main-path-shaped operands: (layers, N, bs, KH, D) pools (one pool per
     layer, rotated so consecutive launches read other pages, as the layer
-    loop does), random permuted tables, ragged contexts."""
+    loop does), random permuted tables, ragged contexts.  ``int8`` makes
+    the pools int8 codes with (layers, N, KH) f32 scales.  The draws are
+    seeded by the shape, so every pool type of one shape gets the same
+    tables, contexts and q: their times compare like with like."""
     from repro_torch.configs import get_config
 
     cfg = get_config("stablelm-3b")
     kh, d, g, bs = cfg.n_kv_heads, cfg.resolved_head_dim, 1, 16
     n = b * nblk + 1
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1000 * b + c)
     k = torch.randn((layers, n, bs, kh, d), generator=gen, device=dev).to(dtype)
     v = torch.randn((layers, n, bs, kh, d), generator=gen, device=dev).to(dtype)
     q = torch.randn((b, c, kh, g, d), generator=gen, device=dev).to(dtype)
@@ -102,20 +110,38 @@ def attention_case(dtype, b, c, nblk, layers, gen, dev):
     ctx = torch.randint(0, hi + 1, (b, 1), generator=gen, device=dev)
     qpos = (ctx + torch.arange(c, device=dev)[None, :]).to(torch.int32)
     live = (qpos.max(dim=1).values // bs + 1).to(torch.int32)
-    return dict(k=k, v=v, q=q, tables=tables, qpos=qpos, live=live, bs=bs,
-                scale=1.0 / math.sqrt(d))
+    case = dict(k=k, v=v, q=q, tables=tables, qpos=qpos, live=live, bs=bs,
+                scale=1.0 / math.sqrt(d), ksc=None, vsc=None)
+    if int8:
+        shape, sshape = k.shape, k.shape[:2] + (kh,)
+        case["k"], case["v"] = (
+            torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8) for _ in range(2))
+        case["ksc"], case["vsc"] = (
+            0.005 + 0.045 * torch.rand(sshape, generator=gen, device=dev)
+            for _ in range(2))
+    return case
+
+
+def _layer(case, l):
+    """Layer ``l``'s (k_pool, v_pool, k_scales, v_scales) of a case."""
+    ksc, vsc = case["ksc"], case["vsc"]
+    return (case["k"][l], case["v"][l], None if ksc is None else ksc[l],
+            None if vsc is None else vsc[l])
 
 
 def attention_bound_ms(case) -> tuple:
-    """Least time for the work: bytes (q, the live K/V pages, tables,
-    positions, output) over HBM, or 4*D flops per visible (query, key) pair
-    over the input type's peak; the larger of the two."""
+    """Least time for the work: bytes (q, the live K/V pages at the pool's
+    element size, their scales for int8 pools, tables, positions, output)
+    over HBM, or 4*D flops per visible (query, key) pair over the query
+    type's peak; the larger of the two."""
     q, k, tables, qpos, live, bs = (case["q"], case["k"], case["tables"],
                                     case["qpos"], case["live"], case["bs"])
     b, c, kh, g, d = q.shape
-    el = q.element_size()
-    page = bs * kh * d * el
-    nbytes = (2 * q.numel() * el + 2 * int(live.sum()) * page
+    page = bs * kh * d * k.element_size()
+    if case["ksc"] is not None:
+        page += kh * case["ksc"].element_size()  # one scale per kv head
+    nbytes = (2 * q.numel() * q.element_size() + 2 * int(live.sum()) * page
               + 4 * (tables.numel() + qpos.numel() + live.numel()))
     visible = torch.minimum(qpos.long() + 1, (live.long() * bs)[:, None])
     flops = 4 * d * g * kh * int(visible.sum())
@@ -124,21 +150,33 @@ def attention_bound_ms(case) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _dense(pool, scales, ids, dtype):
+    """Pages ``ids`` (B, w) of a pool as dense (B, KH, w * bs, D) in
+    ``dtype``; int8 pages dequantized (code * scale) on the way."""
+    pages = pool[ids]                                  # (B, w, bs, KH, D)
+    if scales is not None:
+        pages = pages.float() * scales[ids][:, :, None, :, None]
+    b, w, bs, kh, d = pages.shape
+    return (pages.to(dtype).reshape(b, w * bs, kh, d).transpose(1, 2)
+            .contiguous())
+
+
 def sdpa_ms(case, layers) -> float:
     """One scaled_dot_product_attention call over the same work: the pages
-    are gathered into dense (B, H, S, D) K/V first (not timed)."""
+    are gathered into dense (B, H, S, D) K/V of q's dtype first, int8 pages
+    dequantized (neither is timed)."""
     import torch.nn.functional as F
 
     q, tables, qpos, live, bs = (case["q"], case["tables"], case["qpos"],
                                  case["live"], case["bs"])
     b, c, kh, g, d = q.shape
     w = int(live.max())
+    ids = tables[:, :w].long()
     ks, vs = [], []
     for l in range(layers):
-        ks.append(case["k"][l][tables[:, :w].long()].reshape(
-            b, w * bs, kh, d).transpose(1, 2).contiguous())
-        vs.append(case["v"][l][tables[:, :w].long()].reshape(
-            b, w * bs, kh, d).transpose(1, 2).contiguous())
+        kp, vp, ksc, vsc = _layer(case, l)
+        ks.append(_dense(kp, ksc, ids, q.dtype))
+        vs.append(_dense(vp, vsc, ids, q.dtype))
     qd = q[:, :, :, 0].transpose(1, 2).contiguous()  # (B, H, C, D)
     kvpos = torch.arange(w * bs, device=q.device)
     mask = ((kvpos[None, None, :] <= qpos[:, :, None])
@@ -154,12 +192,51 @@ def sdpa_ms(case, layers) -> float:
     return time_ms(call)
 
 
-def check_attention(dtype, b, c, nblk, gen, dev, tol):
+def time_attention(case, layers, tag) -> dict:
+    """Kernel, plain version and SDPA over a case, each launch reading the
+    next layer's pools as the layer loop does; the bound from the case.
+    These comparison launches are taken off the launch counts."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import paged_attention_chunk_ref
+
+    q, tables, qpos, live, scale = (case["q"], case["tables"], case["qpos"],
+                                    case["live"], case["scale"])
+    it = [0]
+
+    def layer():
+        it[0] += 1
+        return _layer(case, (it[0] - 1) % layers)
+
+    def kern():
+        kp, vp, ksc, vsc = layer()
+        pa.paged_attention_chunk(q, kp, vp, tables, qpos, live, ksc, vsc,
+                                 scale=scale)
+
+    def plain():
+        kp, vp, ksc, vsc = layer()
+        paged_attention_chunk_ref(q, kp, vp, tables, qpos, live, scale=scale,
+                                  k_scales=ksc, v_scales=vsc)
+
+    saved = pa.LAUNCHES.n, pa.LAUNCHES_Q8.n
+    ms = time_ms(kern)
+    plain_ms = time_ms(plain, reps=5, warmup=1)
+    lib_ms = sdpa_ms(case, layers)
+    pa.LAUNCHES.n, pa.LAUNCHES_Q8.n = saved
+    bound, by = attention_bound_ms(case)
+    dense = " (dense K/V, dequantized untimed)" if case["ksc"] is not None else ""
+    print(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"sdpa{dense} {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)
+
+
+def check_attention(dtype, b, c, nblk, dev, tol):
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.ref import paged_attention_chunk_ref
 
     layers = 8
-    case = attention_case(dtype, b, c, nblk, layers, gen, dev)
+    case = attention_case(dtype, b, c, nblk, layers, dev)
     q, tables, qpos, live, scale = (case["q"], case["tables"], case["qpos"],
                                     case["live"], case["scale"])
     k0, v0 = case["k"][0], case["v"][0]
@@ -187,28 +264,92 @@ def check_attention(dtype, b, c, nblk, gen, dev, tol):
     phase(f"{tag} vs plain", close and bitwise and nan_safe,
           f"max_abs_err={err:.3e} (tol {tol}), bounded==unbounded "
           f"{bitwise}, NaN dead slots unread {nan_safe}")
-    it = [0]
+    return dict(max_abs_err=err, **time_attention(case, layers, tag))
 
-    def kern():
-        l = it[0] % layers
-        it[0] += 1
-        pa.paged_attention_chunk(q, case["k"][l], case["v"][l], tables, qpos,
-                                 live, scale=scale)
 
-    def plain():
-        l = it[0] % layers
-        it[0] += 1
-        paged_attention_chunk_ref(q, case["k"][l], case["v"][l], tables,
-                                  qpos, live, scale=scale)
+def check_attention_int8(b, c, nblk, dev, tol):
+    """The fused-dequant kernel over int8 pools: bf16 q against the plain
+    version; f32 q against the f32 kernel on the dequantized pools,
+    bitwise; NaN scales in dead table slots never read."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.quant import dequantize_pool
+    from repro_torch.kernels.ref import paged_attention_chunk_int8_ref
 
-    saved = pa.LAUNCHES.n
-    ms = time_ms(kern)
-    plain_ms = time_ms(plain, reps=5, warmup=1)
-    lib_ms = sdpa_ms(case, layers)
-    pa.LAUNCHES.n = saved  # comparison launches do not count
-    bound, by = attention_bound_ms(case)
-    print(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
+    layers = 8
+    case = attention_case(torch.bfloat16, b, c, nblk, layers, dev, int8=True)
+    q, tables, qpos, live, scale = (case["q"], case["tables"], case["qpos"],
+                                    case["live"], case["scale"])
+    kq, vq, ksc, vsc = _layer(case, 0)
+    got = pa.paged_attention_chunk(q, kq, vq, tables, qpos, live, ksc, vsc,
+                                   scale=scale)
+    want = paged_attention_chunk_int8_ref(q, kq, vq, ksc, vsc, tables, qpos,
+                                          live, scale=scale)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    close = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    qf = q.float()
+    fused = pa.paged_attention_chunk(qf, kq, vq, tables, qpos, live, ksc,
+                                     vsc, scale=scale)
+    mat = pa.paged_attention_chunk(qf, dequantize_pool(kq, ksc),
+                                   dequantize_pool(vq, vsc), tables, qpos,
+                                   live, scale=scale)
+    bitwise = torch.equal(fused, mat)
+    del mat
+    dead = torch.arange(nblk, device=dev)[None, :] >= live[:, None]
+    dead_ids = tables[dead].long()
+    ksc2, vsc2 = ksc.clone(), vsc.clone()
+    ksc2[dead_ids] = float("nan")
+    vsc2[dead_ids] = float("nan")
+    poisoned = pa.paged_attention_chunk(q, kq, vq, tables, qpos, live, ksc2,
+                                        vsc2, scale=scale)
+    nan_safe = torch.equal(got, poisoned) and bool(torch.isfinite(got).all())
+    tag = f"paged_attention int8 pools, bf16 q, B={b} C={c} nblk={nblk}"
+    phase(f"{tag} vs plain", close and bitwise and nan_safe,
+          f"max_abs_err={err:.3e} (tol {tol}), f32 q fused == f32 kernel on "
+          f"dequantized pools {bitwise}, NaN dead scales unread {nan_safe}")
+    return dict(max_abs_err=err, **time_attention(case, layers, tag))
+
+
+def check_flash(b, t, h, kh, d, dtype, causal, gen, dev, tol, tag):
+    """Dense flash attention against its plain version, timed beside
+    ``scaled_dot_product_attention(enable_gqa=True)`` and its bound: 4 * D
+    flops per visible (query, key) pair and head at the input type's peak,
+    or q, k, v and out once over HBM."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    q = torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, t, kh, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, t, kh, d), generator=gen, device=dev).to(dtype)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    close = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    finite = bool(torch.isfinite(got).all())
+    del want
+    name = (f"flash_attention {tag}: {str(dtype).split('.')[-1]} "
+            f"{'causal' if causal else 'non-causal'} B={b} T={t} H={h} "
+            f"KH={kh} D={d}")
+    phase(f"{name} vs plain", close and finite and got.shape == q.shape,
+          f"max_abs_err={err:.3e} (tol {tol}), finite={finite}")
+    saved = fa.LAUNCHES.n
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal), reps=10,
+                 warmup=2)
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=causal),
+                       reps=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, heads, T, D)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True))
+    fa.LAUNCHES.n = saved  # comparison launches do not count
+    pairs = t * (t + 1) // 2 if causal else t * t
+    t_ops = 4 * d * h * b * pairs / PEAK_OPS[dtype] * 1e3
+    t_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+        / HBM_BPS * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+          f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=lib_ms)
 
@@ -268,11 +409,11 @@ def trace(n_req: int, lo: int, hi: int, vocab: int, salt: int = 0):
 
 
 def serve_full_width(dev):
+    """Phases 3 and 3b: the seeded trace on full-width stablelm-3b, with
+    bf16 pages and then, on the same weights, int8 pages.  Returns each
+    run's launch counts."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import era_scan as es
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import init_params
-    from repro_torch.serve import ServeEngine
 
     cfg = get_config("stablelm-3b")  # full width, 32 layers, bf16
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -282,46 +423,75 @@ def serve_full_width(dev):
     torch.cuda.synchronize()
     print(f"  stablelm-3b full width: {n_params} params in {cfg.dtype}, "
           f"init {time.perf_counter() - t0:.1f} s", flush=True)
+    launches, toks = serve_trace(cfg, params, dev, kv_dtype=None)
+    launches_q8, toks_q8 = serve_trace(cfg, params, dev, kv_dtype="int8")
+    match = sum(a == b for x, y in zip(toks, toks_q8) for a, b in zip(x, y))
+    total = sum(map(len, toks))
+    # random weights: near-tie argmaxes flip freely, so no floor is set
+    print(f"  int8 vs bf16 pages, greedy token match: {match}/{total} "
+          f"({match / total:.3f})", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return launches, launches_q8
+
+
+def serve_trace(cfg, params, dev, kv_dtype):
+    """Serve the 32-request trace with ``kv_dtype`` pages (None: the model's
+    bf16) and check the serving invariants and that the path launched its
+    kernels and no other attention kernel.  Returns (launch counts,
+    generated tokens per request)."""
+    from repro_torch.kernels import era_scan as es
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve import ServeEngine
+
     n_blocks, bs, new = 2048, 16, 64
     engine = ServeEngine(cfg, params, n_blocks=n_blocks, block_size=bs,
                          max_batch=8, chunk_size=256, scheme="WFE",
-                         use_kernel=True, device=dev)
+                         use_kernel=True, kv_dtype=kv_dtype, device=dev)
     tid = engine.pool.register_thread()
     prompts = trace(32, 64, 1024, cfg.vocab_size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the main path's launch counts: zeroed just before, read just after
-    pa.LAUNCHES.n = 0
-    es.LAUNCHES.n = 0
+    pa.LAUNCHES.n = pa.LAUNCHES_Q8.n = es.LAUNCHES.n = 0
     t0 = time.perf_counter()
     reqs = [engine.submit(p, max_new_tokens=new) for p in prompts]
     stats = engine.run(tid)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"paged_attention_chunk": pa.LAUNCHES.n,
+                "paged_attention_chunk_int8": pa.LAUNCHES_Q8.n,
                 "era_scan_interval": es.LAUNCHES.n}
+    attn = ("paged_attention_chunk_int8" if kv_dtype == "int8"
+            else "paged_attention_chunk")
+    path = {attn, "era_scan_interval"}
     gen_tokens = sum(len(r.generated) for r in reqs)
     toks_ok = all(len(r.generated) == new and
                   all(0 <= t < cfg.vocab_size for t in r.generated)
                   for r in reqs)
     ok = (stats["completed"] == 32 and engine.pool.unreclaimed() == 0
           and engine.pool.free_blocks == n_blocks and toks_ok
-          and all(v > 0 for v in launches.values()))
+          and all((n > 0) == (k in path) for k, n in launches.items()))
     steps = stats["steps"]
-    phase("serve stablelm-3b full width bf16, 32 requests", ok,
+    label = kv_dtype or "bf16"
+    phase(f"serve stablelm-3b full width, {label} pages, 32 requests", ok,
           f"completed={stats['completed']} unreclaimed="
           f"{engine.pool.unreclaimed()} free_blocks={engine.pool.free_blocks}"
           f"/{n_blocks} launches={launches} steps={steps} "
           f"prompt_tokens={sum(map(len, prompts))} generated={gen_tokens}")
-    print(f"  serve: {dt:.3f} s wall, {gen_tokens / dt:.2f} output tokens/s, "
-          f"{dt / steps * 1e3:.2f} ms/step over {steps} steps "
-          f"({stats['mixed_steps']} mixed), peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on "
-          f"{gpu_name_and_limit()}", flush=True)
+    kv_bytes = sum(t.numel() * t.element_size() for t in engine.pools.values())
+    print(f"  serve ({label} pages): {dt:.3f} s wall, {gen_tokens / dt:.2f} "
+          f"output tokens/s, {dt / steps * 1e3:.2f} ms/step over {steps} "
+          f"steps ({stats['mixed_steps']} mixed), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, KV pools "
+          f"{kv_bytes / 2**30:.3f} GiB = "
+          f"{kv_bytes / ((n_blocks + 1) * bs):.0f} B/token (scales included) "
+          f"on {gpu_name_and_limit()}", flush=True)
     profile_window(engine, tid, cfg)
-    del engine, params
+    generated = [r.generated for r in reqs]
+    del engine
     torch.cuda.empty_cache()
-    return launches
+    return {k: launches[k] for k in sorted(path)}, generated
 
 
 def _window(engine, tid, cfg, salt):
@@ -362,7 +532,8 @@ def profile_window(engine, tid, cfg):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _window(engine, tid, cfg, salt=2)
     names: dict = {}
-    groups = {"paged_attention kernel": 0.0, "era_scan kernel": 0.0,
+    groups = {"paged_attention kernel": 0.0,
+              "paged_attention int8 kernel": 0.0, "era_scan kernel": 0.0,
               "GEMM (cuBLAS)": 0.0, "copies": 0.0, "other kernels": 0.0}
     for evt in prof.key_averages():
         if evt.device_type.name != "CUDA":  # host ops: their kernels count
@@ -372,7 +543,9 @@ def profile_window(engine, tid, cfg):
             us = getattr(evt, "self_cuda_time_total", 0.0)
         name = evt.key.lower()
         names[evt.key[:60]] = names.get(evt.key[:60], 0.0) + us
-        if "paged_chunk_kernel" in name:
+        if "paged_chunk_kernel" in name and "signed char" in name:
+            groups["paged_attention int8 kernel"] += us
+        elif "paged_chunk_kernel" in name:
             groups["paged_attention kernel"] += us
         elif "era_scan_kernel" in name:
             groups["era_scan kernel"] += us
@@ -492,26 +665,50 @@ def main() -> int:
         # decode (C == 1, B == max_batch) and a mixed step (max_batch + 1
         # rows of one 256-token chunk bucket); table width bucket 128
         for b, c in ((8, 1), (9, 256)):
-            attn[(dtype, c)] = check_attention(dtype, b, c, 128, gen, dev, tol)
+            attn[(dtype, c)] = check_attention(dtype, b, c, 128, dev, tol)
+    for b, c in ((8, 1), (9, 256)):
+        attn[("int8", c)] = check_attention_int8(b, c, 128, dev, 2e-2)
+    torch.cuda.empty_cache()
+    # dense flash attention: prefill of stablelm-3b (MHA, D 80) and of
+    # starcoder2-3b (GQA 24 / 2, D 128; src/repro/configs/starcoder2_3b.py),
+    # and an f32 non-causal GQA case
+    flash = check_flash(1, 4096, 32, 32, 80, torch.bfloat16, True, gen, dev,
+                        2e-2, "stablelm-3b prefill")
+    check_flash(1, 4096, 24, 2, 128, torch.bfloat16, True, gen, dev, 2e-2,
+                "starcoder2-3b prefill")
+    check_flash(2, 1024, 8, 2, 64, torch.float32, False, gen, dev, 1e-4,
+                "GQA")
+    torch.cuda.empty_cache()
     scan = check_era_scan(4096, 512, gen, dev)
     check_era_scan(4096, 5120, gen, dev)  # kernel_bench.py:38 (T 512 x H 10)
     check_era_scan(64, 64, gen, dev)      # the engine's scans: 8 threads x 8 slots
     torch.cuda.empty_cache()
 
-    launches = serve_full_width(dev)
+    launches, launches_q8 = serve_full_width(dev)
     step_matches_cpu(dev)
     forced_slow_path(dev)
 
-    head = attn[(torch.bfloat16, 1)]
+    # each kernel's numbers at its main-path decode shape (bf16 q); the
+    # launches of the run whose path it is on (flash is on none)
     kernels = [
         dict(name="paged_attention_chunk", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention.py:148",
-             launches=launches["paged_attention_chunk"], **head),
+             launches=launches["paged_attention_chunk"],
+             **attn[(torch.bfloat16, 1)]),
+        dict(name="paged_attention_chunk_int8", route="cuda",
+             source="src/repro_torch/kernels/csrc/paged_attention.cu",
+             replaces="src/repro/kernels/paged_attention.py:129",
+             launches=launches_q8["paged_attention_chunk_int8"],
+             **attn[("int8", 1)]),
         dict(name="era_scan_interval", route="cuda",
              source="src/repro_torch/kernels/csrc/era_scan.cu",
              replaces="src/repro/kernels/era_scan.py:96",
              launches=launches["era_scan_interval"], **scan),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:83",
+             launches=0, on_main_path=False, **flash),
     ]
     if FAILED:
         print(f"chip_smoke: FAILED phases: {FAILED}", file=sys.stderr)

@@ -3,6 +3,8 @@ versions (``ref``) and the device selectors (``ops``).
 
 Nothing here builds or loads a kernel at import time: the first launch
 builds ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` (``build.library``).
+The dense attention selector is ``ops.flash_attention``; it is not
+re-exported here, where its name would hide the ``flash_attention`` module.
 """
 
 from .ops import (can_delete_blocks_interval, paged_chunk_attention,

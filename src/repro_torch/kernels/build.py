@@ -34,9 +34,11 @@ _I = ctypes.c_int
 #: C signatures of the exported entry points (every pointer and the stream
 #: as c_void_p, or ctypes would cut them to 32-bit ints)
 SIGNATURES = {
-    "paged_attention_chunk": [_I, _P, _P, _P, _P, _P, _P, _P,
+    "paged_attention_chunk": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     "era_scan_interval": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        ctypes.c_float, _P],
 }
 
 

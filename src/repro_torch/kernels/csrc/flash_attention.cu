@@ -1,0 +1,195 @@
+// Dense GQA flash attention (forward), for sm_90a.
+//
+// Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:
+// flash_attention_tpu (:83, body _flash_kernel :33).  q (B, T, H, D), k/v
+// (B, T, KH, D) -> out (B, T, H, D); query head kh * G + g reads kv head kh
+// (G = H / KH).  Semantics kept from the TPU kernel: q, k and v are read as
+// f32, a score is (q . k) * scale with scale = 1 / sqrt(D), causal keeps
+// kpos <= qpos, the softmax is online, P stays f32 in the PV product (the
+// TPU kernel casts P to V's dtype, which it has already made f32), and the
+// output is acc / max(l, 1e-30) in q's dtype.  The TPU's cq/ck chunking is
+// tiling only: this kernel picks its own tiles and masks a ragged T.
+//
+// Design.  One block of 4 warps per (tile of 16 query rows, kv head,
+// batch row); rows are (position, group) pairs, position-major, so a tile
+// covers 16 / G positions.  Each warp owns 4 rows and keeps their q,
+// running max, sum and f32 accumulator in registers, lanes splitting
+// head_dim (d = lane + 32k, so D = 80 needs no padding).  The block walks
+// the keys in tiles of 32, staged in shared memory as f32 once for all 16
+// rows; under the causal mask it stops at the tile's last position, so
+// tiles above the diagonal are neither loaded nor computed (the TPU
+// kernel's `run` predicate), and a masked key is skipped outright.
+//
+// What bounds it on an H100: the work is 4 * D flops per visible
+// (query, key) pair and the bytes are q, k, v and out once, so it is bound
+// by operations: the tensor cores' 989 TFLOP/s in bf16.  This kernel does
+// its products on the CUDA cores with a warp-wide butterfly sum per score
+// (no wgmma, no TMA yet), so it runs far from that bound.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 4;
+constexpr int kRowsPerWarp = 4;
+constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
+constexpr int kTileK = 32;
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <typename T, int DPL>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, T* __restrict__ out, int Tn, int H,
+             int KH, int D, int causal, float scale) {
+  extern __shared__ float smem[];
+  float* ks = smem;                // (kTileK, D)
+  float* vs = smem + kTileK * D;   // (kTileK, D)
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;  // kv head
+  const int G = H / KH;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rows = Tn * G;
+  const int row0 = blockIdx.x * kRowsPerBlock;
+
+  float qr[kRowsPerWarp][DPL];
+  float acc[kRowsPerWarp][DPL];
+  float m[kRowsPerWarp], l[kRowsPerWarp];
+  int lim[kRowsPerWarp];  // last key a row sees; -1 for a row past T
+  size_t qoff[kRowsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = row0 + warp * kRowsPerWarp + i;
+    const bool ok = r < rows;
+    const int t = ok ? r / G : 0;
+    const int g = ok ? r % G : 0;
+    lim[i] = ok ? (causal ? t : Tn - 1) : -1;
+    qoff[i] = (((size_t)b * Tn + t) * H + (size_t)h * G + g) * D;
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DPL; ++kk) {
+      const int d = lane + 32 * kk;
+      qr[i][kk] = (ok && d < D) ? to_f32(q[qoff[i] + d]) : 0.f;
+      acc[i][kk] = 0.f;
+    }
+  }
+
+  // keys the block walks: up to its last row's position under the causal
+  // mask, all T otherwise
+  const int last_row = min(row0 + kRowsPerBlock, rows) - 1;
+  const int kend = causal ? last_row / G + 1 : Tn;
+
+  for (int k0 = 0; k0 < kend; k0 += kTileK) {
+    const int n = min(kTileK, kend - k0);
+    __syncthreads();  // the previous tile is no longer read
+    for (int e = threadIdx.x; e < n * D; e += blockDim.x) {
+      const int t = e / D, d = e - t * D;
+      const size_t src = (((size_t)b * Tn + k0 + t) * KH + h) * D + d;
+      ks[e] = to_f32(k[src]);
+      vs[e] = to_f32(v[src]);
+    }
+    __syncthreads();
+    for (int t = 0; t < n; ++t) {
+      const float* kt = ks + t * D;
+      const float* vt = vs + t * D;
+      float kv[DPL], vv[DPL];
+#pragma unroll
+      for (int kk = 0; kk < DPL; ++kk) {
+        const int d = lane + 32 * kk;
+        kv[kk] = d < D ? kt[d] : 0.f;
+        vv[kk] = d < D ? vt[d] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        if (k0 + t > lim[i]) continue;  // masked (warp-uniform)
+        float s = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < DPL; ++kk) s = fmaf(qr[i][kk], kv[kk], s);
+        s = warp_sum(s) * scale;
+        const float mn = fmaxf(m[i], s);
+        const float corr = expf(m[i] - mn);
+        const float p = expf(s - mn);
+        l[i] = l[i] * corr + p;
+#pragma unroll
+        for (int kk = 0; kk < DPL; ++kk)
+          acc[i][kk] = acc[i][kk] * corr + p * vv[kk];
+        m[i] = mn;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    if (lim[i] < 0) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int kk = 0; kk < DPL; ++kk) {
+      const int d = lane + 32 * kk;
+      if (d < D) store_f32(out + qoff[i] + d, acc[i][kk] * inv);
+    }
+  }
+}
+
+template <typename T, int DPL>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Tn, int H, int KH, int D, int causal, float scale,
+           cudaStream_t stream) {
+  const int rows = Tn * (H / KH);
+  dim3 grid((rows + kRowsPerBlock - 1) / kRowsPerBlock, KH, B);
+  const size_t smem = 2 * (size_t)kTileK * D * sizeof(float);
+  flash_kernel<T, DPL><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), Tn, H, KH, D, causal,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int by_head_dim(const void* q, const void* k, const void* v, void* out, int B,
+                int Tn, int H, int KH, int D, int causal, float scale,
+                cudaStream_t s) {
+  switch ((D + 31) / 32) {
+    case 1: return launch<T, 1>(q, k, v, out, B, Tn, H, KH, D, causal, scale, s);
+    case 2: return launch<T, 2>(q, k, v, out, B, Tn, H, KH, D, causal, scale, s);
+    case 3: return launch<T, 3>(q, k, v, out, B, Tn, H, KH, D, causal, scale, s);
+    case 4: return launch<T, 4>(q, k, v, out, B, Tn, H, KH, D, causal, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike).  Returns the
+// cudaError_t of the launch.
+extern "C" int flash_attention(int dtype, const void* q, const void* k,
+                               const void* v, void* out, int B, int Tn, int H,
+                               int KH, int D, int causal, float scale,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H % KH != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return by_head_dim<float>(q, k, v, out, B, Tn, H, KH, D, causal, scale, s);
+  if (dtype == 1)
+    return by_head_dim<__nv_bfloat16>(q, k, v, out, B, Tn, H, KH, D, causal,
+                                      scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,13 +1,14 @@
 // Paged chunk attention through block tables, for sm_90a.
 //
-// Replaces the Pallas TPU kernel repro/kernels/paged_attention.py:
-// paged_attention_chunk (:148, body _chunk_kernel_body :57).  Each query
-// row (one of the C*G rows of a request's chunk for one kv head) attends,
-// with an online softmax, over the pool tokens its block table names at
-// absolute positions <= its own.  Only the first num_live[b] table slots
-// are walked: the loop bound takes the place of the TPU index-map clamp,
-// so dead slots are neither read nor computed.  An all-masked row writes
-// 0 (the max(l, 1e-30) guard of the TPU kernel).
+// Replaces the Pallas TPU kernels of repro/kernels/paged_attention.py:
+// paged_attention_chunk (:148, body _chunk_kernel_body :57) and its int8
+// variant _paged_chunk_kernel_q8 (:129).  Each query row (one of the C*G
+// rows of a request's chunk for one kv head) attends, with an online
+// softmax, over the pool tokens its block table names at absolute
+// positions <= its own.  Only the first num_live[b] table slots are
+// walked: the loop bound takes the place of the TPU index-map clamp, so
+// dead slots are neither read nor computed.  An all-masked row writes 0
+// (the max(l, 1e-30) guard of the TPU kernel).
 //
 // Design.  One block of 4 warps per (tile of 16 query rows, kv head,
 // request).  Each warp owns 4 rows and keeps their q, running max, sum and
@@ -19,15 +20,29 @@
 // row's position are skipped, so masked and dead tokens are exact no-ops
 // and the bounded walk equals the unbounded one bitwise.
 //
+// Storage types.  The query is f32 or bf16; the pools are f32, fp16, bf16
+// or int8, whatever the query's type.  Every pool type is converted to f32
+// as its tile is staged, and nothing after the staging depends on it.  An
+// int8 tile is staged as float(code) * scale, with the (block, kv head)
+// scale read once per live slot through the same table entry as the page
+// (k_scales[tables[b, j] * KH + h]).  int8 -> f32 is exact and the
+// multiply is one f32 rounding, so the fused kernel equals the f32 kernel
+// on materialized dequantized pools bitwise, and the scale of a dead slot
+// is never read.
+//
 // What bounds it on an H100: decode (C == 1) reads each live K/V page once
-// per (request, kv head), so it is bound by HBM bytes (3.35 TB/s); a
-// prefill chunk re-reads the same pages for every row tile and does
+// per (request, kv head), so it is bound by HBM bytes (3.35 TB/s): 1 byte
+// per element plus 4 bytes of scale per (block, kv head) for int8 pools.
+// A prefill chunk re-reads the same pages for every row tile and does
 // 4*C*ctx*D flops per head on CUDA cores (no tensor cores yet, wgmma and
 // TMA are later work), so it is bound by the f32 FMA rate.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -40,6 +55,10 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
 __device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
@@ -51,17 +70,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// q, out: (B, C, KH, G, D); pools: (N, bs, KH, D); tables: (B, nblk);
-// qpos: (B, C); live: (B,).  All contiguous.
-template <typename T, int DPL>
+// q, out: (B, C, KH, G, D) of TQ; pools: (N, bs, KH, D) of TKV; scales:
+// (N, KH) f32, read for int8 pools only; tables: (B, nblk); qpos: (B, C);
+// live: (B,).  All contiguous.
+template <typename TQ, typename TKV, int DPL>
 __global__ void __launch_bounds__(kWarps * 32)
-paged_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                   const T* __restrict__ v_pool,
+paged_chunk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
+                   const TKV* __restrict__ v_pool,
+                   const float* __restrict__ k_scales,
+                   const float* __restrict__ v_scales,
                    const int32_t* __restrict__ tables,
                    const int32_t* __restrict__ qpos,
-                   const int32_t* __restrict__ live, T* __restrict__ out,
+                   const int32_t* __restrict__ live, TQ* __restrict__ out,
                    int C, int KH, int G, int D, int bs, int nblk,
                    float scale) {
+  constexpr bool kQuantized = std::is_same<TKV, int8_t>::value;
   extern __shared__ float smem[];
   float* ks = smem;            // (bs, D)
   float* vs = smem + bs * D;   // (bs, D)
@@ -110,11 +133,22 @@ paged_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   for (int j = 0; j < jend; ++j) {
     const size_t blk = (size_t)tables[(size_t)b * nblk + j];
     __syncthreads();  // the previous tile is no longer read
-    for (int e = threadIdx.x; e < tile; e += blockDim.x) {
-      const int t = e / D, d = e - t * D;
-      const size_t src = ((blk * bs + t) * KH + h) * (size_t)D + d;
-      ks[e] = to_f32(k_pool[src]);
-      vs[e] = to_f32(v_pool[src]);
+    if constexpr (kQuantized) {
+      const float ksc = k_scales[blk * KH + h];
+      const float vsc = v_scales[blk * KH + h];
+      for (int e = threadIdx.x; e < tile; e += blockDim.x) {
+        const int t = e / D, d = e - t * D;
+        const size_t src = ((blk * bs + t) * KH + h) * (size_t)D + d;
+        ks[e] = __fmul_rn(to_f32(k_pool[src]), ksc);
+        vs[e] = __fmul_rn(to_f32(v_pool[src]), vsc);
+      }
+    } else {
+      for (int e = threadIdx.x; e < tile; e += blockDim.x) {
+        const int t = e / D, d = e - t * D;
+        const size_t src = ((blk * bs + t) * KH + h) * (size_t)D + d;
+        ks[e] = to_f32(k_pool[src]);
+        vs[e] = to_f32(v_pool[src]);
+      }
     }
     __syncthreads();
     const int base = j * bs;
@@ -159,49 +193,69 @@ paged_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-template <typename T, int DPL>
-int launch(const void* q, const void* k, const void* v, const void* tables,
-           const void* qpos, const void* live, void* out, int B, int C,
-           int KH, int G, int D, int bs, int nblk, float scale,
-           cudaStream_t stream) {
-  const int rows = C * G;
-  dim3 grid((rows + kRowsPerBlock - 1) / kRowsPerBlock, KH, B);
-  const size_t smem = 2 * (size_t)bs * D * sizeof(float);
-  paged_chunk_kernel<T, DPL><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(tables),
-      static_cast<const int32_t*>(qpos), static_cast<const int32_t*>(live),
-      static_cast<T*>(out), C, KH, G, D, bs, nblk, scale);
+struct Args {
+  const void *q, *k, *v, *ksc, *vsc, *tables, *qpos, *live;
+  void* out;
+  int B, C, KH, G, D, bs, nblk;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename TQ, typename TKV, int DPL>
+int launch(const Args& a) {
+  const int rows = a.C * a.G;
+  dim3 grid((rows + kRowsPerBlock - 1) / kRowsPerBlock, a.KH, a.B);
+  const size_t smem = 2 * (size_t)a.bs * a.D * sizeof(float);
+  paged_chunk_kernel<TQ, TKV, DPL><<<grid, kWarps * 32, smem, a.stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
+      static_cast<const TKV*>(a.v), static_cast<const float*>(a.ksc),
+      static_cast<const float*>(a.vsc), static_cast<const int32_t*>(a.tables),
+      static_cast<const int32_t*>(a.qpos), static_cast<const int32_t*>(a.live),
+      static_cast<TQ*>(a.out), a.C, a.KH, a.G, a.D, a.bs, a.nblk, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* tables,
-             const void* qpos, const void* live, void* out, int B, int C,
-             int KH, int G, int D, int bs, int nblk, float scale,
-             cudaStream_t stream) {
-  switch ((D + 31) / 32) {
-    case 1: return launch<T, 1>(q, k, v, tables, qpos, live, out, B, C, KH, G, D, bs, nblk, scale, stream);
-    case 2: return launch<T, 2>(q, k, v, tables, qpos, live, out, B, C, KH, G, D, bs, nblk, scale, stream);
-    case 3: return launch<T, 3>(q, k, v, tables, qpos, live, out, B, C, KH, G, D, bs, nblk, scale, stream);
-    case 4: return launch<T, 4>(q, k, v, tables, qpos, live, out, B, C, KH, G, D, bs, nblk, scale, stream);
+template <typename TQ, typename TKV>
+int by_head_dim(const Args& a) {
+  switch ((a.D + 31) / 32) {
+    case 1: return launch<TQ, TKV, 1>(a);
+    case 2: return launch<TQ, TKV, 2>(a);
+    case 3: return launch<TQ, TKV, 3>(a);
+    case 4: return launch<TQ, TKV, 4>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename TQ>
+int by_pool_type(int kv_dtype, const Args& a) {
+  switch (kv_dtype) {
+    case 0: return by_head_dim<TQ, float>(a);
+    case 1: return by_head_dim<TQ, __nv_bfloat16>(a);
+    case 2: return by_head_dim<TQ, __half>(a);
+    case 3: return by_head_dim<TQ, int8_t>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
-extern "C" int paged_attention_chunk(int dtype, const void* q, const void* k,
-                                     const void* v, const void* tables,
+// Type codes: 0 = float32, 1 = bfloat16, 2 = float16, 3 = int8.  q_dtype is
+// 0 or 1; kv_dtype any of the four, and 3 needs k_scales / v_scales.
+// Returns the cudaError_t of the launch.
+extern "C" int paged_attention_chunk(int q_dtype, int kv_dtype, const void* q,
+                                     const void* k, const void* v,
+                                     const void* k_scales,
+                                     const void* v_scales, const void* tables,
                                      const void* qpos, const void* live,
                                      void* out, int B, int C, int KH, int G,
                                      int D, int bs, int nblk, float scale,
                                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, tables, qpos, live, out, B, C, KH, G, D, bs, nblk, scale, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, tables, qpos, live, out, B, C, KH, G, D, bs, nblk, scale, s);
+  const Args a{q, k, v, k_scales, v_scales, tables, qpos, live, out,
+               B, C, KH, G, D, bs, nblk, scale,
+               static_cast<cudaStream_t>(stream)};
+  if (kv_dtype == 3 && (k_scales == nullptr || v_scales == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (q_dtype == 0) return by_pool_type<float>(kv_dtype, a);
+  if (q_dtype == 1) return by_pool_type<__nv_bfloat16>(kv_dtype, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,10 +13,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import era_scan, paged_attention, ref
+from . import era_scan, flash_attention as flash, paged_attention, ref
 
-__all__ = ["can_delete_blocks_interval", "paged_decode_attention",
-           "paged_chunk_attention"]
+__all__ = ["can_delete_blocks_interval", "flash_attention",
+           "paged_decode_attention", "paged_chunk_attention"]
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -45,25 +45,41 @@ def can_delete_blocks_interval(alloc_eras, retire_eras, res_lo, res_hi, *,
 
 
 def paged_decode_attention(q, k_pool, v_pool, tables, lengths,
-                           num_live_blocks=None, *,
+                           num_live_blocks=None, k_scales=None,
+                           v_scales=None, *,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """Decode attention over the paged pool.  q (B,KH,G,D) -> (B,KH,G,D)."""
+    """Decode attention over the paged pool.  q (B,KH,G,D) -> (B,KH,G,D).
+    ``k_scales``/``v_scales`` (N,KH) f32 go with int8 pools."""
     if _on_cpu(q):
         return ref.paged_attention_ref(q, k_pool, v_pool, tables, lengths,
-                                       num_live_blocks, scale=scale)
+                                       num_live_blocks, scale=scale,
+                                       k_scales=k_scales, v_scales=v_scales)
     return paged_attention.paged_attention(q, k_pool, v_pool, tables, lengths,
-                                           num_live_blocks, scale=scale)
+                                           num_live_blocks, k_scales,
+                                           v_scales, scale=scale)
 
 
 def paged_chunk_attention(q, k_pool, v_pool, tables, q_positions,
-                          num_live_blocks=None, *,
+                          num_live_blocks=None, k_scales=None,
+                          v_scales=None, *,
                           scale: Optional[float] = None) -> torch.Tensor:
     """Chunked-prefill attention over the paged pool.  q (B,C,KH,G,D) ->
     (B,C,KH,G,D); a query at absolute position p sees pool tokens at
-    positions <= p within its first ``num_live_blocks[b]`` table slots."""
+    positions <= p within its first ``num_live_blocks[b]`` table slots.
+    ``k_scales``/``v_scales`` (N,KH) f32 go with int8 pools."""
     if _on_cpu(q):
         return ref.paged_attention_chunk_ref(q, k_pool, v_pool, tables,
                                              q_positions, num_live_blocks,
-                                             scale=scale)
+                                             scale=scale, k_scales=k_scales,
+                                             v_scales=v_scales)
     return paged_attention.paged_attention_chunk(
-        q, k_pool, v_pool, tables, q_positions, num_live_blocks, scale=scale)
+        q, k_pool, v_pool, tables, q_positions, num_live_blocks, k_scales,
+        v_scales, scale=scale)
+
+
+def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """Dense GQA forward attention.  q (B,T,H,D), k/v (B,T,KH,D) ->
+    (B,T,H,D)."""
+    if _on_cpu(q):
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    return flash.flash_attention(q, k, v, causal=causal)

@@ -1,13 +1,16 @@
 """Paged chunk attention through WFE-managed block tables: the CUDA kernel.
 
 Replaces the Pallas TPU kernel ``repro/kernels/paged_attention.py``
-``paged_attention_chunk`` (:148) and its decode wrapper ``paged_attention``
-(:227).  Query rows attend over K/V scattered across the pool blocks a
-request's table names, causally by absolute position, walking only the
-first ``num_live_blocks[b]`` table slots.  The kernel lives in
-``csrc/paged_attention.cu`` (design and what bounds it on an H100 are in
-its header); this module checks the operands and launches it on the
-current CUDA stream.  Its plain PyTorch version is ``paged_attention_chunk_ref``.
+``paged_attention_chunk`` (:148), its decode wrapper ``paged_attention``
+(:227) and its int8 variant ``_paged_chunk_kernel_q8`` (:129).  Query rows
+attend over K/V scattered across the pool blocks a request's table names,
+causally by absolute position, walking only the first
+``num_live_blocks[b]`` table slots.  Int8 pools come with per-(block,
+kv-head) f32 scales, and the kernel dequantizes each tile as it stages it.
+The kernel lives in ``csrc/paged_attention.cu`` (design and what bounds it
+on an H100 are in its header); this module checks the operands and
+launches it on the current CUDA stream.  Its plain PyTorch versions are
+``paged_attention_chunk_ref`` and ``paged_attention_chunk_int8_ref``.
 
 The wrappers here take CUDA tensors only; ``ops`` selects between them
 and the plain version by the tensor's device.
@@ -21,19 +24,28 @@ from typing import Optional
 import torch
 
 from . import build
-from .ref import paged_attention_chunk_ref, paged_attention_ref
+from .ref import (check_scales, paged_attention_chunk_int8_ref,
+                  paged_attention_chunk_ref, paged_attention_int8_ref,
+                  paged_attention_ref)
 
 __all__ = ["paged_attention_chunk", "paged_attention",
-           "paged_attention_chunk_ref", "paged_attention_ref", "LAUNCHES"]
+           "paged_attention_chunk_ref", "paged_attention_ref",
+           "paged_attention_chunk_int8_ref", "paged_attention_int8_ref",
+           "LAUNCHES", "LAUNCHES_Q8"]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel's type codes: the query's, and the pools' (any of the four)
+_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+              torch.int8: 3}
 MAX_HEAD_DIM = 128
 #: shared memory the kernel stages per block: one f32 (bs, D) K and V tile
 MAX_TILE_BYTES = 48 * 1024
 
 
-#: launches of the kernel (``LAUNCHES.n``), bumped once per launch
+#: launches over float pools (``LAUNCHES.n``), bumped once per launch
 LAUNCHES = build.Counter()
+#: launches over int8 pools, the port of ``_paged_chunk_kernel_q8``
+LAUNCHES_Q8 = build.Counter()
 
 
 def _check(name: str, t: torch.Tensor, ndim: int, dtype=None) -> None:
@@ -50,20 +62,35 @@ def _check(name: str, t: torch.Tensor, ndim: int, dtype=None) -> None:
 def paged_attention_chunk(q: torch.Tensor, k_pool: torch.Tensor,
                           v_pool: torch.Tensor, tables: torch.Tensor,
                           q_positions: torch.Tensor,
-                          num_live_blocks: Optional[torch.Tensor] = None, *,
+                          num_live_blocks: Optional[torch.Tensor] = None,
+                          k_scales: Optional[torch.Tensor] = None,
+                          v_scales: Optional[torch.Tensor] = None, *,
                           scale: Optional[float] = None) -> torch.Tensor:
-    """q (B,C,KH,G,D); pools (N,bs,KH,D) f32 or bf16 (q's dtype); tables
-    (B,nblk) i32; q_positions (B,C) i32; num_live_blocks (B,) i32 (None =
-    every slot: the causal mask still bounds the walk).  Returns
-    (B,C,KH,G,D) in q's dtype."""
+    """q (B,C,KH,G,D) f32 or bf16; pools (N,bs,KH,D) f32, fp16, bf16 or
+    int8 (both alike, whatever q's type); k_scales/v_scales (N,KH) f32, for
+    int8 pools only; tables (B,nblk) i32; q_positions (B,C) i32;
+    num_live_blocks (B,) i32 (None = every slot: the causal mask still
+    bounds the walk).  Returns (B,C,KH,G,D) in q's dtype."""
     _check("q", q, 5)
     b, c, kh, g, d = q.shape
-    if q.dtype not in _DTYPES:
+    if q.dtype not in _Q_DTYPES:
         raise ValueError(f"q dtype {q.dtype} not supported; one of "
-                         f"{list(_DTYPES)}")
-    _check("k_pool", k_pool, 4, q.dtype)
-    _check("v_pool", v_pool, 4, q.dtype)
+                         f"{list(_Q_DTYPES)}")
+    if k_pool.dtype not in _KV_DTYPES:
+        raise ValueError(f"pool dtype {k_pool.dtype} not supported; one of "
+                         f"{list(_KV_DTYPES)}")
+    check_scales(k_pool, k_scales, v_scales)
+    _check("k_pool", k_pool, 4)
+    _check("v_pool", v_pool, 4, k_pool.dtype)
     n, bs, pkh, pd = k_pool.shape
+    quantized = k_scales is not None
+    if quantized:
+        _check("k_scales", k_scales, 2, torch.float32)
+        _check("v_scales", v_scales, 2, torch.float32)
+        if k_scales.shape != (n, kh) or v_scales.shape != (n, kh):
+            raise ValueError(f"scales must be (N, KH) = {(n, kh)}, got "
+                             f"{tuple(k_scales.shape)}, "
+                             f"{tuple(v_scales.shape)}")
     if (pkh, pd) != (kh, d) or v_pool.shape != k_pool.shape:
         raise ValueError(f"pool shape {tuple(k_pool.shape)} does not match "
                          f"q {tuple(q.shape)}")
@@ -86,22 +113,27 @@ def paged_attention_chunk(q: torch.Tensor, k_pool: torch.Tensor,
         return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = build.library().paged_attention_chunk(
-        _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        _Q_DTYPES[q.dtype], _KV_DTYPES[k_pool.dtype], q.data_ptr(),
+        k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scales.data_ptr() if quantized else None,
+        v_scales.data_ptr() if quantized else None,
         tables.data_ptr(), q_positions.data_ptr(), num_live_blocks.data_ptr(),
         out.data_ptr(), b, c, kh, g, d, bs, nblk, float(scale), stream)
     build.check(err, "paged_attention_chunk")
-    LAUNCHES.n += 1
+    (LAUNCHES_Q8 if quantized else LAUNCHES).n += 1
     return out
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, tables: torch.Tensor,
                     lengths: torch.Tensor,
-                    num_live_blocks: Optional[torch.Tensor] = None, *,
+                    num_live_blocks: Optional[torch.Tensor] = None,
+                    k_scales: Optional[torch.Tensor] = None,
+                    v_scales: Optional[torch.Tensor] = None, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Single-token decode: the C == 1 chunk.  q (B,KH,G,D); lengths (B,)
     i32 including the query token.  Returns (B,KH,G,D)."""
     q_positions = (lengths - 1).to(torch.int32)[:, None].contiguous()
     return paged_attention_chunk(q[:, None], k_pool, v_pool, tables,
-                                 q_positions, num_live_blocks,
-                                 scale=scale)[:, 0]
+                                 q_positions, num_live_blocks, k_scales,
+                                 v_scales, scale=scale)[:, 0]

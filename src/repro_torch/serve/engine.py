@@ -21,6 +21,11 @@ attention kernel is LENGTH-BOUNDED: it walks each request's
 ``cleanup_batch``; attention runs on the CUDA kernel whenever the engine's
 device is CUDA, and on its plain version on the CPU.
 
+``kv_dtype`` ("fp32", "fp16", "bf16" or "int8"; None follows the model's
+dtype) sets the pages' storage type.  Int8 pages carry per-(block,
+kv-head) scales beside the pools, indexed by pool slot like the pages, so
+the blocks layer is the same in every mode.
+
 Greedy sampling; the (B,) sampled ids come back to the host each step.
 """
 
@@ -67,6 +72,7 @@ class ServeEngine:
             raise NotImplementedError("sharded pools are not ported yet")
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.kv_dtype = kv_dtype
         self.params = params
         self.block_size = block_size
         # width policy, as in the reference:
@@ -137,7 +143,8 @@ class ServeEngine:
         the next tick may reallocate and overwrite it.  So the sampled ids
         are brought to the host (a synchronising ``.cpu()``) BEFORE
         ``complete()``: every kernel of this step has then finished reading
-        the pages the reservation protects.
+        the pages the reservation protects, and in int8 mode their scale
+        slots too, which are read only through the same table snapshot.
         """
         if plan.kind == "prefill":
             sampled = self._dispatch_prefill(plan)

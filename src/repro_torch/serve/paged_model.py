@@ -12,7 +12,10 @@ writes its view ``pools["k"][l]``, so a step copies no page.  The caller
 must therefore not let a page be reallocated while a step that reads it is
 still queued on the device (see ``engine.ServeEngine.execute_plan``).
 
-Supported stacks: dense attention ("attn") without MLA, fp pools.
+Pools hold f32, fp16, bf16 or int8 pages (``KV_DTYPES``); int8 pages carry
+per-(block, kv-head) scales written by ``kernels.quant.scatter_quantized``.
+
+Supported stacks: dense attention ("attn") without MLA.
 """
 
 from __future__ import annotations
@@ -24,28 +27,61 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import paged_chunk_attention, paged_decode_attention
+from repro_torch.kernels.quant import scatter_quantized
 from repro_torch.models.attention import _qkv
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        matmul, unembed)
 
 Params = Dict[str, Any]
 
+#: ``kv_dtype=`` strings -> pool storage dtype (None = follow cfg.dtype)
+KV_DTYPES = {"fp32": torch.float32, "fp16": torch.float16,
+             "bf16": torch.bfloat16, "int8": torch.int8}
+
+
 def init_pools(cfg, n_blocks: int, block_size: int, kv_dtype=None,
                device=None) -> Dict[str, torch.Tensor]:
-    """One K and one V pool for all layers: (L, N, bs, KH, D) in
-    ``cfg.dtype`` on ``device`` (default CUDA).  The reference's
-    ``kv_dtype`` overrides (int8 pages among them) are not ported yet: any
-    value but None raises."""
+    """One K and one V pool for all layers: (L, N, bs, KH, D) on ``device``
+    (default CUDA), in ``KV_DTYPES[kv_dtype]`` (None follows
+    ``cfg.dtype``).  ``"int8"`` adds ``k_scale``/``v_scale`` (L, N, KH) f32.
+
+    A scale row ``[l, n]`` belongs to pool block ``n`` as its page does,
+    and is read only through the protected table snapshot that names the
+    page, so WFE's era safety covers it and the blocks layer never touches
+    it.  A recycled block keeps its last scale: that can only start the
+    running absmax higher (a coarser code, never a wrong one).
+    """
     kh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    if kv_dtype is not None:
-        raise NotImplementedError(f"kv_dtype={kv_dtype!r} is not ported yet; "
-                                  "pools follow cfg.dtype")
-    dtype = cfg.dtype
+    if kv_dtype is not None and kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype={kv_dtype!r}: expected one of "
+                         f"{sorted(KV_DTYPES)} or None")
+    dtype = cfg.dtype if kv_dtype is None else KV_DTYPES[kv_dtype]
     dev = resolve_device(device)
     n_layers = cfg.n_groups * len(cfg.block_pattern)
     shape = (n_layers, n_blocks, block_size, kh, hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    pools = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if dtype == torch.int8:
+        sshape = (n_layers, n_blocks, kh)
+        pools["k_scale"] = torch.zeros(sshape, dtype=torch.float32, device=dev)
+        pools["v_scale"] = torch.zeros(sshape, dtype=torch.float32, device=dev)
+    return pools
+
+
+def _write_kv(pools, l, blk, off, k_rows, v_rows, dest=None):
+    """Write layer ``l``'s new K/V rows (M, KH, D) at (blk, off) in place
+    and return that layer's (k_pool, v_pool, k_scales, v_scales) views; the
+    scales are None for float pools.  Int8 pools quantize the rows under
+    their blocks' running absmax (``dest``: see ``scatter_quantized``)."""
+    k_pool, v_pool = pools["k"][l], pools["v"][l]
+    if "k_scale" not in pools:
+        k_pool[blk, off] = k_rows.to(k_pool.dtype)
+        v_pool[blk, off] = v_rows.to(v_pool.dtype)
+        return k_pool, v_pool, None, None
+    k_sc, v_sc = pools["k_scale"][l], pools["v_scale"][l]
+    scatter_quantized(k_pool, k_sc, blk, off, k_rows, dest)
+    scatter_quantized(v_pool, v_sc, blk, off, v_rows, dest)
+    return k_pool, v_pool, k_sc, v_sc
 
 
 def _check_paged_support(cfg):
@@ -92,7 +128,11 @@ def paged_decode_step(cfg, params, pools, tables, lengths, tokens, positions):
     rows = torch.arange(b, device=tokens.device)
     # the pool block and in-block offset receiving this token's K/V.  Batch
     # pad rows all write token 0 at position 0 of the scratch slot: equal
-    # values, so index_put_'s unordered duplicate writes are harmless
+    # values, so index_put_'s unordered duplicate writes are harmless.  In
+    # int8 mode they also grow the scratch slot's scale; the block pool
+    # never hands that slot out, so no request reads it.  The B destination
+    # blocks are re-coded as they are (``dest=blk_of_tok``): a duplicate
+    # re-codes to the same bytes, and no torch.unique syncs with the host
     blk_of_tok = tables[rows, (positions // bs).long()].long()
     off = (positions % bs).long()
     # per-request LIVE table slots: the decode token's own block is the
@@ -101,12 +141,12 @@ def paged_decode_step(cfg, params, pools, tables, lengths, tokens, positions):
     for l, bp in _layers(cfg, params):
         hn = apply_norm(cfg, bp["norm_mix"], x)
         q, k1, v1 = _qkv(cfg, bp["mix"], hn, positions[:, None])
-        k_pool, v_pool = pools["k"][l], pools["v"][l]
-        k_pool[blk_of_tok, off] = k1[:, 0]
-        v_pool[blk_of_tok, off] = v1[:, 0]
+        k_pool, v_pool, k_sc, v_sc = _write_kv(
+            pools, l, blk_of_tok, off, k1[:, 0], v1[:, 0], dest=blk_of_tok)
         qg = q.reshape(b, kh, g, hd).contiguous()
         out = paged_decode_attention(qg, k_pool, v_pool, tables, lengths,
-                                     num_live, scale=1.0 / math.sqrt(hd))
+                                     num_live, k_sc, v_sc,
+                                     scale=1.0 / math.sqrt(hd))
         out = out.reshape(b, 1, h * hd).to(x.dtype)
         x = x + matmul(out, bp["mix"]["wo"])
         x = _mlp_residual(cfg, bp, x)
@@ -150,6 +190,9 @@ def paged_prefill_chunk(cfg, params, pools, tables, tokens, positions,
     vpos = positions[vb, vc]
     blk = tables[vb, torch.clamp(vpos // bs, max=nblk - 1).long()].long()
     off = (vpos % bs).long()
+    # int8 pools re-code each destination block once; the blocks are the
+    # same for every layer, so one torch.unique (another host sync) serves
+    dest = torch.unique(blk) if "k_scale" in pools else None
     # per-request LIVE table slots: the chunk's last valid token sits in the
     # deepest block any of its queries can see (padded columns clamp to the
     # row's last valid position, so they derive the same bound)
@@ -162,12 +205,12 @@ def paged_prefill_chunk(cfg, params, pools, tables, tokens, positions,
         q, k1, v1 = _qkv(cfg, bp["mix"], hn, positions)
         # scatter the chunk's K/V into the pool FIRST, so the attention
         # below sees intra-chunk keys through the same tables
-        k_pool, v_pool = pools["k"][l], pools["v"][l]
-        k_pool[blk, off] = k1[vb, vc]
-        v_pool[blk, off] = v1[vb, vc]
+        k_pool, v_pool, k_sc, v_sc = _write_kv(
+            pools, l, blk, off, k1[vb, vc], v1[vb, vc], dest=dest)
         qg = q.reshape(b, c, kh, g, hd).contiguous()
         out = paged_chunk_attention(qg, k_pool, v_pool, tables, positions,
-                                    num_live, scale=1.0 / math.sqrt(hd))
+                                    num_live, k_sc, v_sc,
+                                    scale=1.0 / math.sqrt(hd))
         out = out.reshape(b, c, h * hd).to(x.dtype)
         x = x + matmul(out, bp["mix"]["wo"])
         x = _mlp_residual(cfg, bp, x)

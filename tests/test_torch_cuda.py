@@ -7,7 +7,8 @@ there alone:  PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 Tolerances: fp32 1e-4 (the kernel and the plain version sum in different
 orders and use different exp paths); bf16 2e-2 (both compute in f32 from
 the same bf16 inputs and round the output to bf16: one bf16 ulp).  Bounded
-vs unbounded walks and the era scan are held bitwise.
+vs unbounded walks, the fused int8 kernel against the f32 kernel on
+dequantized pools, and the era scan are held bitwise.
 """
 
 import math
@@ -17,8 +18,11 @@ import pytest
 import torch
 
 from repro_torch.core.era_table import _can_delete_numpy, batched_can_delete
-from repro_torch.kernels import era_scan, paged_attention
+from repro_torch.kernels import era_scan, flash_attention, paged_attention
+from repro_torch.kernels.quant import dequantize_pool
 from repro_torch.kernels.ref import (INF_ERA32, era_scan_interval_ref,
+                                     flash_attention_ref,
+                                     paged_attention_chunk_int8_ref,
                                      paged_attention_chunk_ref,
                                      paged_attention_ref)
 
@@ -106,6 +110,117 @@ def test_decode_wrapper_equals_chunk(dev):
     torch.testing.assert_close(
         dec, paged_attention_ref(q[:, 0], k, v, tables, lengths, live),
         rtol=1e-4, atol=1e-4)
+
+
+def _int8_pools(k, v, dev, seed):
+    """Int8 codes and (N, KH) scales of the shapes of k and v."""
+    rng = np.random.default_rng(seed)
+    n, _, kh, _ = k.shape
+    codes = [torch.from_numpy(rng.integers(-127, 128, tuple(k.shape)).astype(
+        np.int8)).to(dev) for _ in range(2)]
+    scales = [torch.from_numpy(rng.uniform(0.005, 0.05, (n, kh)).astype(
+        np.float32)).to(dev) for _ in range(2)]
+    return codes[0], codes[1], scales[0], scales[1]
+
+
+INT8_SHAPES = [
+    (8, 1, 32, 1, 80, 16, 16),    # stablelm-3b decode
+    (3, 40, 32, 1, 80, 16, 8),    # stablelm-3b chunk, ragged
+    (3, 4, 2, 2, 64, 8, 5),       # test_kernels.py:368
+    (1, 8, 2, 1, 128, 4, 7),      # head_dim 128
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,c,kh,g,d,bs,nblk", INT8_SHAPES)
+def test_int8_kernel_matches_plain(dev, dtype, tol, b, c, kh, g, d, bs, nblk):
+    q, k, v, tables, qpos, live = _case(b, c, kh, g, d, bs, nblk, dtype, dev,
+                                        seed=b * c + d + 1)
+    kq, vq, ksc, vsc = _int8_pools(k, v, dev, seed=b + c)
+    n0, n8 = paged_attention.LAUNCHES.n, paged_attention.LAUNCHES_Q8.n
+    got = paged_attention.paged_attention_chunk(q, kq, vq, tables, qpos, live,
+                                                ksc, vsc)
+    torch.cuda.synchronize()
+    assert (paged_attention.LAUNCHES.n, paged_attention.LAUNCHES_Q8.n) == \
+        (n0, n8 + 1)
+    want = paged_attention_chunk_int8_ref(q, kq, vq, ksc, vsc, tables, qpos,
+                                          live)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,c,kh,g,d,bs,nblk", INT8_SHAPES)
+def test_int8_fused_equals_f32_kernel_on_dequantized_pools(
+        dev, b, c, kh, g, d, bs, nblk):
+    """(As test_kernels.py:372.)  Dequantizing at staging is one f32
+    multiply, the same as ``dequantize_pool``: the outputs are equal."""
+    q, k, v, tables, qpos, live = _case(b, c, kh, g, d, bs, nblk,
+                                        torch.float32, dev, seed=b + d)
+    kq, vq, ksc, vsc = _int8_pools(k, v, dev, seed=c + nblk)
+    fused = paged_attention.paged_attention_chunk(q, kq, vq, tables, qpos,
+                                                  live, ksc, vsc)
+    mat = paged_attention.paged_attention_chunk(
+        q, dequantize_pool(kq, ksc), dequantize_pool(vq, vsc), tables, qpos,
+        live)
+    assert torch.equal(fused, mat)
+
+
+def test_int8_dead_slot_scales_never_read(dev):
+    """(As test_kernels.py:428.)  NaN scales past each request's bound."""
+    q, k, v, tables, qpos, live = _case(4, 6, 4, 1, 80, 16, 8, torch.float32,
+                                        dev, seed=31)
+    kq, vq, ksc, vsc = _int8_pools(k, v, dev, seed=31)
+    out1 = paged_attention.paged_attention_chunk(q, kq, vq, tables, qpos,
+                                                 live, ksc, vsc)
+    dead = torch.arange(tables.shape[1], device=dev)[None, :] >= live[:, None]
+    ksc2, vsc2 = ksc.clone(), vsc.clone()
+    ksc2[tables[dead].long()] = math.nan
+    vsc2[tables[dead].long()] = math.nan
+    out2 = paged_attention.paged_attention_chunk(q, kq, vq, tables, qpos,
+                                                 live, ksc2, vsc2)
+    assert torch.equal(out1, out2)
+    assert torch.isfinite(out2).all()
+
+
+@pytest.mark.parametrize("pool_dtype", [torch.float16, torch.bfloat16])
+def test_half_pools_under_f32_query(dev, pool_dtype):
+    """Pools of another type than the query: converted to f32 at staging,
+    so the kernel equals the f32 kernel on the pools made f32."""
+    q, k, v, tables, qpos, live = _case(3, 40, 32, 1, 80, 16, 8,
+                                        torch.float32, dev, seed=3)
+    kp, vp = k.to(pool_dtype), v.to(pool_dtype)
+    got = paged_attention.paged_attention_chunk(q, kp, vp, tables, qpos, live)
+    assert got.dtype == torch.float32
+    f32 = paged_attention.paged_attention_chunk(q, kp.float(), vp.float(),
+                                                tables, qpos, live)
+    assert torch.equal(got, f32)
+    torch.testing.assert_close(
+        got, paged_attention_chunk_ref(q, kp, vp, tables, qpos, live),
+        rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,t,h,kh,d,causal", [
+    (2, 256, 4, 4, 64, True),     # test_kernels.py:474 (MHA)
+    (1, 256, 4, 2, 64, True),     # GQA g=2
+    (2, 128, 8, 1, 128, True),    # MQA
+    (2, 128, 2, 2, 64, False),    # non-causal (:495)
+    (1, 300, 32, 32, 80, True),   # stablelm-3b heads, ragged T
+    (1, 200, 24, 2, 128, True),   # starcoder2-3b heads, ragged T
+])
+def test_flash_kernel_matches_plain(dev, dtype, tol, b, t, h, kh, d, causal):
+    rng = np.random.default_rng(t + h)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dev).to(dtype)
+               for s in ((b, t, h, d), (b, t, kh, d), (b, t, kh, d)))
+    n0 = flash_attention.LAUNCHES.n
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES.n == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("r,s", [(1, 1), (300, 700), (4096, 512), (257, 3)])

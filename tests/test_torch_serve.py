@@ -196,10 +196,12 @@ def test_paged_steps_match_reference(models):
     _close(pools["k"], ref_pools["k"], 2e-3)
 
 
-def test_int8_pools_not_ported(models):
+def test_init_pools_rejects_unknown_kv_dtype(models):
+    """(As test_kv_int8.py:137; the other kv_dtype cases are in
+    test_torch_int8.)"""
     _, cfg, _, _ = models
-    with pytest.raises(NotImplementedError):
-        init_pools(cfg, 4, 4, kv_dtype="int8", device="cpu")
+    with pytest.raises(ValueError, match="kv_dtype"):
+        init_pools(cfg, 4, 4, kv_dtype="int4", device="cpu")
 
 
 # ------------------------------------------------------------ engine
