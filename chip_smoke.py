@@ -7,16 +7,25 @@ Phases, each printing its own line; any failure exits non-zero:
 1. Build every CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc
    for sm_90a (one nvcc per source, started together) and print the card's
    name and power limit.
-2. Hold each kernel against its plain PyTorch version at main-path shapes
-   (stablelm-3b: KH 32, G 1, head_dim 80, block_size 16), time kernel,
-   plain version and the PyTorch library yardstick, and compute each
-   kernel's bound (the least time the card could take for the same work):
-   paged attention over bf16/f32 pools and over int8 pools (fused dequant),
-   the era scan, and dense flash attention at the stablelm-3b and
-   starcoder2-3b prefill shapes.
+2. Hold each kernel variant against its plain PyTorch version at main-path
+   shapes (stablelm-3b: KH 32, G 1, head_dim 80, block_size 16), time
+   kernel, plain version and the PyTorch library yardstick, and compute
+   each kernel's bound (the least time the card could take for the same
+   work): paged attention over bf16/f32 and over int8 pools at decode
+   (the split-KV walk) and at a mixed step (the tensor-core tile; the f32
+   query's CUDA-core walk), also in the engine's own mixed layout (decode
+   rows padded to the chunk bucket); the era scan; dense flash attention
+   at the stablelm-3b and starcoder2-3b prefill shapes.  The split-KV walk
+   and the tile are also held against the plain models of their own
+   algebra (``ref.paged_attention_split_ref``, ``paged_attention_tile_ref``).
+   ``ms`` is the time per eager call (host launch cost included where it
+   exceeds the device work), ``device_ms`` that of one CUDA-graph replay
+   of the same calls (the device time of their kernels).
 3. Serve a seeded 32-request trace on the full-width stablelm-3b engine in
-   bf16 (WFE, use_kernel=True) and check the serving invariants and that
-   the path's kernels were launched; then (3b) the same trace on the same
+   bf16 (WFE, use_kernel=True) and check the serving invariants, that the
+   path's kernels were launched, and that decode steps took the split-KV
+   walk and mixed and prefill steps the tensor-core tile (launches printed
+   by variant and by plan kind); then (3b) the same trace on the same
    weights with int8 KV pages.  Then check the model step against the
    plain path on the CPU at full width and reduced depth.
 4. A WFE forced-slow-path run at reduced depth.
@@ -63,17 +72,31 @@ def phase(name: str, ok: bool, detail: str = "") -> None:
         FAILED.append(name)
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Device time per call from CUDA events around ``reps`` calls."""
+def time_ms(fn, reps: int = 20, warmup: int = 3, graph: bool = False) -> float:
+    """Time per call from CUDA events around ``reps`` eager calls (the
+    host's launch overhead counts wherever it exceeds the device work).
+    With ``graph`` the ``reps`` calls are captured once into a CUDA graph
+    and one replay is timed: the device time of the calls' kernels."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+        end.record()
+    else:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
@@ -87,13 +110,20 @@ def gpu_name_and_limit() -> str:
 
 
 # ------------------------------------------------------------ phase 2: kernels
-def attention_case(dtype, b, c, nblk, layers, dev, int8=False):
+def attention_case(dtype, b, c, nblk, layers, dev, int8=False,
+                   engine_mixed=False):
     """Main-path-shaped operands: (layers, N, bs, KH, D) pools (one pool per
     layer, rotated so consecutive launches read other pages, as the layer
     loop does), random permuted tables, ragged contexts.  ``int8`` makes
     the pools int8 codes with (layers, N, KH) f32 scales.  The draws are
     seeded by the shape, so every pool type of one shape gets the same
-    tables, contexts and q: their times compare like with like."""
+    tables, contexts and q: their times compare like with like.
+
+    ``engine_mixed`` lays the rows out as the engine's mixed step does
+    (``ServeEngine._dispatch_mixed``): the first b - 1 rows are decode rows
+    whose c columns all sit at the row's decode position (the pad columns
+    clamp to it) and only column 0 is read; the last row is a c-token
+    chunk.  ``read`` (B, C) marks the rows the step reads."""
     from repro_torch.configs import get_config
 
     cfg = get_config("stablelm-3b")
@@ -108,10 +138,15 @@ def attention_case(dtype, b, c, nblk, layers, dev, int8=False):
     # ragged contexts up to the trace's longest request (1024 + 64 tokens)
     hi = min(nblk * bs, 1088) - c
     ctx = torch.randint(0, hi + 1, (b, 1), generator=gen, device=dev)
-    qpos = (ctx + torch.arange(c, device=dev)[None, :]).to(torch.int32)
+    cols = torch.arange(c, device=dev)[None, :]
+    qpos = (ctx + cols).to(torch.int32)
+    read = torch.ones((b, c), dtype=torch.bool, device=dev)
+    if engine_mixed:
+        qpos[:-1] = ctx[:-1].to(torch.int32)
+        read[:-1] = cols == 0
     live = (qpos.max(dim=1).values // bs + 1).to(torch.int32)
     case = dict(k=k, v=v, q=q, tables=tables, qpos=qpos, live=live, bs=bs,
-                scale=1.0 / math.sqrt(d), ksc=None, vsc=None)
+                scale=1.0 / math.sqrt(d), ksc=None, vsc=None, read=read)
     if int8:
         shape, sshape = k.shape, k.shape[:2] + (kh,)
         case["k"], case["v"] = (
@@ -134,17 +169,21 @@ def attention_bound_ms(case) -> tuple:
     """Least time for the work: bytes (q, the live K/V pages at the pool's
     element size, their scales for int8 pools, tables, positions, output)
     over HBM, or 4*D flops per visible (query, key) pair over the query
-    type's peak; the larger of the two."""
+    type's peak; the larger of the two.  Only the rows the step reads
+    (``case["read"]``) count: q and output rows, and their pairs."""
     q, k, tables, qpos, live, bs = (case["q"], case["k"], case["tables"],
                                     case["qpos"], case["live"], case["bs"])
     b, c, kh, g, d = q.shape
+    read = case["read"]
+    n_read = int(read.sum())
     page = bs * kh * d * k.element_size()
     if case["ksc"] is not None:
         page += kh * case["ksc"].element_size()  # one scale per kv head
-    nbytes = (2 * q.numel() * q.element_size() + 2 * int(live.sum()) * page
+    nbytes = (2 * n_read * kh * g * d * q.element_size()
+              + 2 * int(live.sum()) * page
               + 4 * (tables.numel() + qpos.numel() + live.numel()))
     visible = torch.minimum(qpos.long() + 1, (live.long() * bs)[:, None])
-    flops = 4 * d * g * kh * int(visible.sum())
+    flops = 4 * d * g * kh * int(visible[read].sum())
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = flops / PEAK_OPS[q.dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -161,10 +200,10 @@ def _dense(pool, scales, ids, dtype):
             .contiguous())
 
 
-def sdpa_ms(case, layers) -> float:
-    """One scaled_dot_product_attention call over the same work: the pages
-    are gathered into dense (B, H, S, D) K/V of q's dtype first, int8 pages
-    dequantized (neither is timed)."""
+def sdpa_ms(case, layers) -> tuple:
+    """One scaled_dot_product_attention call over the same work, eager and
+    replayed from a CUDA graph: the pages are gathered into dense (B, H, S,
+    D) K/V of q's dtype first, int8 pages dequantized (neither is timed)."""
     import torch.nn.functional as F
 
     q, tables, qpos, live, bs = (case["q"], case["tables"], case["qpos"],
@@ -189,7 +228,7 @@ def sdpa_ms(case, layers) -> float:
         F.scaled_dot_product_attention(qd, ks[l], vs[l], attn_mask=mask,
                                        scale=case["scale"])
 
-    return time_ms(call)
+    return time_ms(call), time_ms(call, graph=True)
 
 
 def time_attention(case, layers, tag) -> dict:
@@ -217,26 +256,98 @@ def time_attention(case, layers, tag) -> dict:
         paged_attention_chunk_ref(q, kp, vp, tables, qpos, live, scale=scale,
                                   k_scales=ksc, v_scales=vsc)
 
-    saved = pa.LAUNCHES.n, pa.LAUNCHES_Q8.n
+    saved = _save_counts()
     ms = time_ms(kern)
+    device_ms = time_ms(kern, graph=True)
     plain_ms = time_ms(plain, reps=5, warmup=1)
-    lib_ms = sdpa_ms(case, layers)
-    pa.LAUNCHES.n, pa.LAUNCHES_Q8.n = saved
+    lib_ms, lib_device_ms = sdpa_ms(case, layers)
+    _restore_counts(saved)
     bound, by = attention_bound_ms(case)
     dense = " (dense K/V, dequantized untimed)" if case["ksc"] is not None else ""
-    print(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa{dense} {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})",
-          flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=lib_ms)
+    print(f"  {tag} [{case_variant(case)}]: kernel {ms:.4f} ms (graph replay "
+          f"{device_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa{dense} "
+          f"{lib_ms:.4f} ms (graph replay {lib_device_ms:.4f} ms), bound "
+          f"{bound:.4f} ms ({by}) on {gpu_name_and_limit()}", flush=True)
+    return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                library_device_ms=lib_device_ms, variant=case_variant(case))
 
 
-def check_attention(dtype, b, c, nblk, dev, tol):
+def case_variant(case) -> str:
+    from repro_torch.kernels import paged_attention as pa
+
+    b, c, kh, g, d = case["q"].shape
+    return pa.choose_variant(case["q"].dtype, case["k"].dtype, c * g, d,
+                             case["bs"])
+
+
+def tolerance(variant, dtype) -> tuple:
+    """(rtol, atol) of a paged variant against the plain version: f32
+    1e-4; the split-KV walk's bf16 output one bf16 rounding step (its
+    scores, P and partials are f32); the tile's 2e-2 (P rounded to bf16)."""
+    if dtype == torch.float32:
+        return 1e-4, 1e-4
+    return (2.0 ** -7, 1e-4) if variant == "split" else (2e-2, 2e-2)
+
+
+def check_model(case, got, layer=0) -> tuple:
+    """The kernel's output ``got`` over layer ``layer`` against the plain
+    model of its variant's algebra: the split-KV walk within 1e-5 in f32
+    and one bf16 step in bf16, the tile within 2e-2.  Returns (ok, detail);
+    the CUDA-core walk has no model of its own (ok, "")."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import (paged_attention_split_ref,
+                                         paged_attention_tile_ref)
+
+    variant = case_variant(case)
+    kp, vp, ksc, vsc = _layer(case, layer)
+    q, tables, qpos, live = (case["q"], case["tables"], case["qpos"],
+                             case["live"])
+    if variant == "split":
+        pps, nsplit = pa.split_plan(tables.shape[1], case["bs"])
+        model = paged_attention_split_ref(
+            q, kp, vp, tables, qpos, live, pages_per_split=pps,
+            n_splits=nsplit, scale=case["scale"], k_scales=ksc, v_scales=vsc)
+        rtol, atol = ((1e-5, 1e-5) if q.dtype == torch.float32
+                      else tolerance(variant, q.dtype))
+    elif variant == "tile":
+        model = paged_attention_tile_ref(q, kp, vp, tables, qpos, live,
+                                         scale=case["scale"], k_scales=ksc,
+                                         v_scales=vsc)
+        rtol, atol = 2e-2, 2e-2
+    else:
+        return True, ""
+    err = (got.float() - model.float()).abs().max().item()
+    ok = torch.allclose(got.float(), model.float(), rtol=rtol, atol=atol)
+    name = ("paged_attention_split_ref" if variant == "split"
+            else "paged_attention_tile_ref")
+    return ok, (f", against {name} max_abs_err={err:.3e} (rtol {rtol:.3g} "
+                f"atol {atol:.3g})")
+
+
+def _save_counts():
+    """Every attention launch count, so comparison launches can be taken
+    off again."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+
+    counters = [pa.LAUNCHES, pa.LAUNCHES_Q8, fa.LAUNCHES,
+                *pa.VARIANT_LAUNCHES.values(), *fa.VARIANT_LAUNCHES.values()]
+    return [(ctr, ctr.n) for ctr in counters]
+
+
+def _restore_counts(saved) -> None:
+    for ctr, n in saved:
+        ctr.n = n
+
+
+def check_attention(dtype, b, c, nblk, dev, engine_mixed=False):
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.ref import paged_attention_chunk_ref
 
     layers = 8
-    case = attention_case(dtype, b, c, nblk, layers, dev)
+    case = attention_case(dtype, b, c, nblk, layers, dev,
+                          engine_mixed=engine_mixed)
     q, tables, qpos, live, scale = (case["q"], case["tables"], case["qpos"],
                                     case["live"], case["scale"])
     k0, v0 = case["k"][0], case["v"][0]
@@ -245,7 +356,9 @@ def check_attention(dtype, b, c, nblk, dev, tol):
                                      scale=scale)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    close = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    rtol, atol = tolerance(case_variant(case), dtype)
+    close = torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
+    model_ok, model_detail = check_model(case, got)
     # bounded walk == unbounded walk, bitwise
     full = torch.full_like(live, nblk)
     unb = pa.paged_attention_chunk(q, k0, v0, tables, qpos, full, scale=scale)
@@ -260,14 +373,43 @@ def check_attention(dtype, b, c, nblk, dev, tol):
                                         scale=scale)
     nan_safe = torch.equal(got, poisoned) and bool(torch.isfinite(got).all())
     del kp, vp
-    tag = f"paged_attention {str(dtype).split('.')[-1]} B={b} C={c} nblk={nblk}"
-    phase(f"{tag} vs plain", close and bitwise and nan_safe,
-          f"max_abs_err={err:.3e} (tol {tol}), bounded==unbounded "
-          f"{bitwise}, NaN dead slots unread {nan_safe}")
-    return dict(max_abs_err=err, **time_attention(case, layers, tag))
+    tag = (f"paged_attention {str(dtype).split('.')[-1]} B={b} C={c} "
+           f"nblk={nblk}" + (" engine mixed layout" if engine_mixed else ""))
+    phase(f"{tag} vs plain", close and model_ok and bitwise and nan_safe,
+          f"max_abs_err={err:.3e} (rtol {rtol:.3g} atol {atol:.3g})"
+          f"{model_detail}, bounded==unbounded {bitwise}, NaN dead slots "
+          f"unread {nan_safe}")
+    row = dict(max_abs_err=err, **time_attention(case, layers, tag))
+    if engine_mixed:
+        row.update(time_pad_fix(case, layers, tag))
+    return row
 
 
-def check_attention_int8(b, c, nblk, dev, tol):
+def time_pad_fix(case, layers, tag) -> float:
+    """The engine's mixed step with its pad columns at position -1 (the
+    rows the step discards see no key), as ROADMAP Queue 2 proposes: what
+    the padded rows cost is the difference from the step as it is."""
+    from repro_torch.kernels import paged_attention as pa
+
+    qpos = torch.where(case["read"], case["qpos"], -1).to(torch.int32)
+    it = [0]
+
+    def kern():
+        kp, vp, ksc, vsc = _layer(case, it[0] % layers)
+        it[0] += 1
+        pa.paged_attention_chunk(case["q"], kp, vp, case["tables"], qpos,
+                                 case["live"], ksc, vsc, scale=case["scale"])
+
+    saved = _save_counts()
+    ms = time_ms(kern)
+    device_ms = time_ms(kern, graph=True)
+    _restore_counts(saved)
+    print(f"  {tag}, pad columns at position -1: kernel {ms:.4f} ms (graph "
+          f"replay {device_ms:.4f} ms)", flush=True)
+    return dict(pad_at_minus_one_ms=ms, pad_at_minus_one_device_ms=device_ms)
+
+
+def check_attention_int8(b, c, nblk, dev, engine_mixed=False):
     """The fused-dequant kernel over int8 pools: bf16 q against the plain
     version; f32 q against the f32 kernel on the dequantized pools,
     bitwise; NaN scales in dead table slots never read."""
@@ -276,7 +418,8 @@ def check_attention_int8(b, c, nblk, dev, tol):
     from repro_torch.kernels.ref import paged_attention_chunk_int8_ref
 
     layers = 8
-    case = attention_case(torch.bfloat16, b, c, nblk, layers, dev, int8=True)
+    case = attention_case(torch.bfloat16, b, c, nblk, layers, dev, int8=True,
+                          engine_mixed=engine_mixed)
     q, tables, qpos, live, scale = (case["q"], case["tables"], case["qpos"],
                                     case["live"], case["scale"])
     kq, vq, ksc, vsc = _layer(case, 0)
@@ -286,7 +429,9 @@ def check_attention_int8(b, c, nblk, dev, tol):
                                           live, scale=scale)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    close = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    rtol, atol = tolerance(case_variant(case), q.dtype)
+    close = torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
+    model_ok, model_detail = check_model(case, got)
     qf = q.float()
     fused = pa.paged_attention_chunk(qf, kq, vq, tables, qpos, live, ksc,
                                      vsc, scale=scale)
@@ -303,11 +448,16 @@ def check_attention_int8(b, c, nblk, dev, tol):
     poisoned = pa.paged_attention_chunk(q, kq, vq, tables, qpos, live, ksc2,
                                         vsc2, scale=scale)
     nan_safe = torch.equal(got, poisoned) and bool(torch.isfinite(got).all())
-    tag = f"paged_attention int8 pools, bf16 q, B={b} C={c} nblk={nblk}"
-    phase(f"{tag} vs plain", close and bitwise and nan_safe,
-          f"max_abs_err={err:.3e} (tol {tol}), f32 q fused == f32 kernel on "
-          f"dequantized pools {bitwise}, NaN dead scales unread {nan_safe}")
-    return dict(max_abs_err=err, **time_attention(case, layers, tag))
+    tag = (f"paged_attention int8 pools, bf16 q, B={b} C={c} nblk={nblk}"
+           + (" engine mixed layout" if engine_mixed else ""))
+    phase(f"{tag} vs plain", close and model_ok and bitwise and nan_safe,
+          f"max_abs_err={err:.3e} (rtol {rtol:.3g} atol {atol:.3g})"
+          f"{model_detail}, f32 q fused == f32 kernel on dequantized pools "
+          f"{bitwise}, NaN dead scales unread {nan_safe}")
+    row = dict(max_abs_err=err, **time_attention(case, layers, tag))
+    if engine_mixed:
+        row.update(time_pad_fix(case, layers, tag))
+    return row
 
 
 def check_flash(b, t, h, kh, d, dtype, causal, gen, dev, tol, tag):
@@ -334,24 +484,32 @@ def check_flash(b, t, h, kh, d, dtype, causal, gen, dev, tol, tag):
             f"KH={kh} D={d}")
     phase(f"{name} vs plain", close and finite and got.shape == q.shape,
           f"max_abs_err={err:.3e} (tol {tol}), finite={finite}")
-    saved = fa.LAUNCHES.n
-    ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal), reps=10,
-                 warmup=2)
+    saved = _save_counts()
+    kern = lambda: fa.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    ms = time_ms(kern, reps=10, warmup=2)
+    device_ms = time_ms(kern, reps=10, warmup=2, graph=True)
     plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=causal),
                        reps=3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, heads, T, D)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=True))
-    fa.LAUNCHES.n = saved  # comparison launches do not count
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    lib_ms = time_ms(lib)
+    lib_device_ms = time_ms(lib, graph=True)
+    _restore_counts(saved)  # comparison launches do not count
     pairs = t * (t + 1) // 2 if causal else t * t
     t_ops = 4 * d * h * b * pairs / PEAK_OPS[dtype] * 1e3
     t_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
         / HBM_BPS * 1e3
     bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-          f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=lib_ms)
+    variant = fa.choose_variant(dtype, d)
+    print(f"  {name} [{variant}]: kernel {ms:.4f} ms (graph replay "
+          f"{device_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
+          f"ms (graph replay {lib_device_ms:.4f} ms), bound {bound:.4f} ms "
+          f"({by}) on {gpu_name_and_limit()}", flush=True)
+    return dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, library_device_ms=lib_device_ms,
+                variant=variant)
 
 
 def check_era_scan(r, s, gen, dev):
@@ -375,6 +533,7 @@ def check_era_scan(r, s, gen, dev):
           f"bit-identical {ok}, {int(want.sum())} of {r} deletable")
     saved = es.LAUNCHES.n
     ms = time_ms(lambda: es.era_scan_interval(*t), reps=50)
+    device_ms = time_ms(lambda: es.era_scan_interval(*t), reps=50, graph=True)
     plain_ms = time_ms(lambda: era_scan_interval_ref(*t), reps=20)
     t0 = time.perf_counter()
     for _ in range(20):
@@ -390,13 +549,14 @@ def check_era_scan(r, s, gen, dev):
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = ops / PEAK_OPS[torch.int32] * 1e3
     bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    print(f"  era_scan R={r} S={s}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, bound {bound:.6f} ms ({by}); cuda backend from NumPy "
+    print(f"  era_scan R={r} S={s}: kernel {ms:.4f} ms (graph replay "
+          f"{device_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by}); cuda backend from NumPy "
           f"mirrors {backend_ms:.4f} ms (host clock), numpy backend "
           f"{numpy_ms:.4f} ms (host clock)", flush=True)
     return dict(max_abs_err=float(np.abs(got.astype(int) - want.astype(int)).max()),
-                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=None)
+                ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None,
+                library_device_ms=None)
 
 
 # ------------------------------------------------------------ phase 3: engine
@@ -452,8 +612,11 @@ def serve_trace(cfg, params, dev, kv_dtype):
     prompts = trace(32, 64, 1024, cfg.vocab_size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    by_kind, wrong, unwrap = variants_by_plan_kind(engine)
     # the main path's launch counts: zeroed just before, read just after
     pa.LAUNCHES.n = pa.LAUNCHES_Q8.n = es.LAUNCHES.n = 0
+    for ctr in pa.VARIANT_LAUNCHES.values():
+        ctr.n = 0
     t0 = time.perf_counter()
     reqs = [engine.submit(p, max_new_tokens=new) for p in prompts]
     stats = engine.run(tid)
@@ -462,6 +625,8 @@ def serve_trace(cfg, params, dev, kv_dtype):
     launches = {"paged_attention_chunk": pa.LAUNCHES.n,
                 "paged_attention_chunk_int8": pa.LAUNCHES_Q8.n,
                 "era_scan_interval": es.LAUNCHES.n}
+    variants = {k: ctr.n for k, ctr in pa.VARIANT_LAUNCHES.items()}
+    unwrap()
     attn = ("paged_attention_chunk_int8" if kv_dtype == "int8"
             else "paged_attention_chunk")
     path = {attn, "era_scan_interval"}
@@ -469,8 +634,18 @@ def serve_trace(cfg, params, dev, kv_dtype):
     toks_ok = all(len(r.generated) == new and
                   all(0 <= t < cfg.vocab_size for t in r.generated)
                   for r in reqs)
+    # decode steps take the split-KV walk and its combine and nothing
+    # else, mixed and prefill steps the tensor-core tile (a chunk of fewer
+    # than 16 columns takes the split walk); no call off its variant, no
+    # CUDA-core walk
+    kinds_ok = (not wrong and set(by_kind) == {"decode", "mixed", "prefill"}
+                and by_kind["decode"]["split"] > 0
+                and by_kind["decode"]["tile"] == 0
+                and by_kind["mixed"]["tile"] > 0
+                and by_kind["prefill"]["tile"] > 0
+                and all(v["cuda_core"] == 0 for v in by_kind.values()))
     ok = (stats["completed"] == 32 and engine.pool.unreclaimed() == 0
-          and engine.pool.free_blocks == n_blocks and toks_ok
+          and engine.pool.free_blocks == n_blocks and toks_ok and kinds_ok
           and all((n > 0) == (k in path) for k, n in launches.items()))
     steps = stats["steps"]
     label = kv_dtype or "bf16"
@@ -479,6 +654,9 @@ def serve_trace(cfg, params, dev, kv_dtype):
           f"{engine.pool.unreclaimed()} free_blocks={engine.pool.free_blocks}"
           f"/{n_blocks} launches={launches} steps={steps} "
           f"prompt_tokens={sum(map(len, prompts))} generated={gen_tokens}")
+    print(f"  launches by variant ({label} pages): {variants}; by plan "
+          f"kind: {by_kind}; plans off their expected variant: {wrong}",
+          flush=True)
     kv_bytes = sum(t.numel() * t.element_size() for t in engine.pools.values())
     print(f"  serve ({label} pages): {dt:.3f} s wall, {gen_tokens / dt:.2f} "
           f"output tokens/s, {dt / steps * 1e3:.2f} ms/step over {steps} "
@@ -491,7 +669,54 @@ def serve_trace(cfg, params, dev, kv_dtype):
     generated = [r.generated for r in reqs]
     del engine
     torch.cuda.empty_cache()
-    return {k: launches[k] for k in sorted(path)}, generated
+    return dict({k: launches[k] for k in sorted(path)}, by_kind=by_kind,
+                **variants), generated
+
+
+def variants_by_plan_kind(engine):
+    """Record which paged-attention variants each wrapper call launched,
+    by the kind of the plan it ran in: ``engine.execute_plan`` (on the
+    instance) notes the kind, and a wrapper around
+    ``paged_attention.paged_attention_chunk`` reads the variant counters
+    around the call and holds what moved against ``choose_variant`` of the
+    shapes the call was given.  Returns ({kind: {variant: launches}},
+    [calls that launched another variant], a function that removes both
+    wrappers), the first two filled as the engine runs."""
+    from repro_torch.kernels import paged_attention as pa
+
+    by_kind: dict = {}
+    wrong: list = []
+    kind = [None]
+    run_plan, chunk = engine.execute_plan, pa.paged_attention_chunk
+
+    def execute_plan(plan, tid):
+        kind[0] = plan.kind
+        by_kind.setdefault(plan.kind, dict.fromkeys(pa.VARIANT_LAUNCHES, 0))
+        return run_plan(plan, tid)
+
+    def paged_attention_chunk(q, k_pool, *args, **kwargs):
+        before = {k: ctr.n for k, ctr in pa.VARIANT_LAUNCHES.items()}
+        out = chunk(q, k_pool, *args, **kwargs)
+        used = {k for k, ctr in pa.VARIANT_LAUNCHES.items()
+                if ctr.n > before[k]}
+        counts = by_kind.setdefault(kind[0],
+                                    dict.fromkeys(pa.VARIANT_LAUNCHES, 0))
+        for k in used:
+            counts[k] += pa.VARIANT_LAUNCHES[k].n - before[k]
+        b, c, kh, g, d = q.shape
+        want = pa.choose_variant(q.dtype, k_pool.dtype, c * g, d,
+                                 k_pool.shape[1])
+        if used != ({"split", "combine"} if want == "split" else {want}):
+            wrong.append((kind[0], tuple(q.shape), want, sorted(used)))
+        return out
+
+    def unwrap():
+        del engine.execute_plan  # the class's own again
+        pa.paged_attention_chunk = chunk
+
+    engine.execute_plan = execute_plan
+    pa.paged_attention_chunk = paged_attention_chunk
+    return by_kind, wrong, unwrap
 
 
 def _window(engine, tid, cfg, salt):
@@ -533,7 +758,8 @@ def profile_window(engine, tid, cfg):
         _window(engine, tid, cfg, salt=2)
     names: dict = {}
     groups = {"paged_attention kernel": 0.0,
-              "paged_attention int8 kernel": 0.0, "era_scan kernel": 0.0,
+              "paged_attention int8 kernel": 0.0, "split combine": 0.0,
+              "era_scan kernel": 0.0,
               "GEMM (cuBLAS)": 0.0, "copies": 0.0, "other kernels": 0.0}
     for evt in prof.key_averages():
         if evt.device_type.name != "CUDA":  # host ops: their kernels count
@@ -543,9 +769,11 @@ def profile_window(engine, tid, cfg):
             us = getattr(evt, "self_cuda_time_total", 0.0)
         name = evt.key.lower()
         names[evt.key[:60]] = names.get(evt.key[:60], 0.0) + us
-        if "paged_chunk_kernel" in name and "signed char" in name:
+        if "split_combine" in name:
+            groups["split combine"] += us
+        elif "paged_" in name and "signed char" in name:
             groups["paged_attention int8 kernel"] += us
-        elif "paged_chunk_kernel" in name:
+        elif "paged_" in name:
             groups["paged_attention kernel"] += us
         elif "era_scan_kernel" in name:
             groups["era_scan kernel"] += us
@@ -661,21 +889,27 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     attn = {}
-    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+    for dtype in (torch.float32, torch.bfloat16):
         # decode (C == 1, B == max_batch) and a mixed step (max_batch + 1
         # rows of one 256-token chunk bucket); table width bucket 128
         for b, c in ((8, 1), (9, 256)):
-            attn[(dtype, c)] = check_attention(dtype, b, c, 128, dev, tol)
+            attn[(dtype, c)] = check_attention(dtype, b, c, 128, dev)
     for b, c in ((8, 1), (9, 256)):
-        attn[("int8", c)] = check_attention_int8(b, c, 128, dev, 2e-2)
+        attn[("int8", c)] = check_attention_int8(b, c, 128, dev)
+    # the engine's own mixed step: 8 decode rows padded to the 256-column
+    # bucket at their decode positions, and one 256-token chunk
+    attn[(torch.bfloat16, "engine")] = check_attention(
+        torch.bfloat16, 9, 256, 128, dev, engine_mixed=True)
+    attn[("int8", "engine")] = check_attention_int8(9, 256, 128, dev,
+                                                    engine_mixed=True)
     torch.cuda.empty_cache()
     # dense flash attention: prefill of stablelm-3b (MHA, D 80) and of
     # starcoder2-3b (GQA 24 / 2, D 128; src/repro/configs/starcoder2_3b.py),
     # and an f32 non-causal GQA case
     flash = check_flash(1, 4096, 32, 32, 80, torch.bfloat16, True, gen, dev,
                         2e-2, "stablelm-3b prefill")
-    check_flash(1, 4096, 24, 2, 128, torch.bfloat16, True, gen, dev, 2e-2,
-                "starcoder2-3b prefill")
+    flash_gqa = check_flash(1, 4096, 24, 2, 128, torch.bfloat16, True, gen,
+                            dev, 2e-2, "starcoder2-3b prefill")
     check_flash(2, 1024, 8, 2, 64, torch.float32, False, gen, dev, 1e-4,
                 "GQA")
     torch.cuda.empty_cache()
@@ -688,27 +922,53 @@ def main() -> int:
     step_matches_cpu(dev)
     forced_slow_path(dev)
 
-    # each kernel's numbers at its main-path decode shape (bf16 q); the
-    # launches of the run whose path it is on (flash is on none)
-    kernels = [
-        dict(name="paged_attention_chunk", route="cuda",
-             source="src/repro_torch/kernels/csrc/paged_attention.cu",
-             replaces="src/repro/kernels/paged_attention.py:148",
-             launches=launches["paged_attention_chunk"],
-             **attn[(torch.bfloat16, 1)]),
-        dict(name="paged_attention_chunk_int8", route="cuda",
-             source="src/repro_torch/kernels/csrc/paged_attention.cu",
-             replaces="src/repro/kernels/paged_attention.py:129",
-             launches=launches_q8["paged_attention_chunk_int8"],
-             **attn[("int8", 1)]),
+    # one row per (kernel, main-path shape) under the kernel's own name;
+    # the first row of each name is at the shape earlier versions of this
+    # line reported (decode, bf16 q), ``case`` and ``variant`` say which
+    # shape and kernel variant a row is.  ``launches``: that variant's
+    # launches in the serving run whose path it is on (bf16 or int8 pages);
+    # flash attention and the f32 query's paths are on no serving path
+    paged = "src/repro_torch/kernels/csrc/paged_attention.cu"
+    rows = [
+        ("paged_attention_chunk", 148, "decode B 8 C 1, bf16 q",
+         launches["split"], attn[(torch.bfloat16, 1)]),
+        ("paged_attention_chunk", 148, "mixed B 9 C 256, bf16 q",
+         launches["tile"], attn[(torch.bfloat16, 256)]),
+        ("paged_attention_chunk", 148, "engine mixed step, bf16 q",
+         launches["by_kind"]["mixed"]["tile"],
+         attn[(torch.bfloat16, "engine")]),
+        ("paged_attention_chunk", 148, "decode B 8 C 1, f32 q", 0,
+         attn[(torch.float32, 1)]),
+        ("paged_attention_chunk", 148, "mixed B 9 C 256, f32 q",
+         launches["cuda_core"], attn[(torch.float32, 256)]),
+        ("paged_attention_chunk_int8", 129, "decode B 8 C 1, bf16 q",
+         launches_q8["split"], attn[("int8", 1)]),
+        ("paged_attention_chunk_int8", 129, "mixed B 9 C 256, bf16 q",
+         launches_q8["tile"], attn[("int8", 256)]),
+        ("paged_attention_chunk_int8", 129, "engine mixed step, bf16 q",
+         launches_q8["by_kind"]["mixed"]["tile"], attn[("int8", "engine")]),
+    ]
+    kernels = [dict(name=name, route="cuda", source=paged,
+                    replaces=f"src/repro/kernels/paged_attention.py:{line}",
+                    launches=n, case=case, **row)
+               for name, line, case, n, row in rows]
+    kernels[0]["launches_combine"] = launches["combine"]
+    kernels[3]["on_main_path"] = kernels[4]["on_main_path"] = False
+    kernels[5]["launches_combine"] = launches_q8["combine"]
+    flash_src = dict(route="cuda",
+                     source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                     replaces="src/repro/kernels/flash_attention.py:83",
+                     launches=0, on_main_path=False)
+    kernels += [
         dict(name="era_scan_interval", route="cuda",
              source="src/repro_torch/kernels/csrc/era_scan.cu",
              replaces="src/repro/kernels/era_scan.py:96",
-             launches=launches["era_scan_interval"], **scan),
-        dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention.py:83",
-             launches=0, on_main_path=False, **flash),
+             launches=launches["era_scan_interval"], case="R 4096 S 512",
+             **scan),
+        dict(name="flash_attention", case="stablelm-3b prefill", **flash_src,
+             **flash),
+        dict(name="flash_attention", case="starcoder2-3b prefill",
+             **flash_src, **flash_gqa),
     ]
     if FAILED:
         print(f"chip_smoke: FAILED phases: {FAILED}", file=sys.stderr)

@@ -36,9 +36,16 @@ _I = ctypes.c_int
 SIGNATURES = {
     "paged_attention_chunk": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    "paged_attention_tile": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    "paged_attention_split": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, ctypes.c_float, _P],
     "era_scan_interval": [_P, _P, _P, _P, _P, _I, _I, _P],
     "flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         ctypes.c_float, _P],
+    "flash_attention_tile": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             ctypes.c_float, _P],
 }
 
 

@@ -3,32 +3,42 @@
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:
 // flash_attention_tpu (:83, body _flash_kernel :33).  q (B, T, H, D), k/v
 // (B, T, KH, D) -> out (B, T, H, D); query head kh * G + g reads kv head kh
-// (G = H / KH).  Semantics kept from the TPU kernel: q, k and v are read as
-// f32, a score is (q . k) * scale with scale = 1 / sqrt(D), causal keeps
-// kpos <= qpos, the softmax is online, P stays f32 in the PV product (the
-// TPU kernel casts P to V's dtype, which it has already made f32), and the
-// output is acc / max(l, 1e-30) in q's dtype.  The TPU's cq/ck chunking is
-// tiling only: this kernel picks its own tiles and masks a ragged T.
+// (G = H / KH).  Semantics kept from the TPU kernel: a score is (q . k) *
+// scale with scale = 1 / sqrt(D), causal keeps kpos <= qpos, the softmax is
+// online, and the output is acc / max(l, 1e-30) in q's dtype.  The TPU's
+// cq/ck chunking is tiling only: these kernels pick their own tiles and
+// mask a ragged T.  Rows are (position, group) pairs, position-major, so a
+// row's position is row / G and GQA needs no extra pass.
 //
-// Design.  One block of 4 warps per (tile of 16 query rows, kv head,
-// batch row); rows are (position, group) pairs, position-major, so a tile
-// covers 16 / G positions.  Each warp owns 4 rows and keeps their q,
-// running max, sum and f32 accumulator in registers, lanes splitting
-// head_dim (d = lane + 32k, so D = 80 needs no padding).  The block walks
-// the keys in tiles of 32, staged in shared memory as f32 once for all 16
-// rows; under the causal mask it stops at the tile's last position, so
-// tiles above the diagonal are neither loaded nor computed (the TPU
-// kernel's `run` predicate), and a masked key is skipped outright.
+// Two variants; the wrapper (flash_attention.py: choose_variant) picks one:
 //
-// What bounds it on an H100: the work is 4 * D flops per visible
-// (query, key) pair and the bytes are q, k, v and out once, so it is bound
-// by operations: the tensor cores' 989 TFLOP/s in bf16.  This kernel does
-// its products on the CUDA cores with a warp-wide butterfly sum per score
-// (no wgmma, no TMA yet), so it runs far from that bound.
+// 1. Tensor-core tile (flash_tile_kernel), bf16 with D 64, 80 or 128: the
+//    shared tile of attention_tile.cuh over dense K/V rows (row stride
+//    KH * D).  The grid is (64-row tiles, KH, B), heaviest causal tiles
+//    first.  Under the causal mask a tile walks keys up to its last row's
+//    position, so key tiles above the diagonal are neither loaded nor
+//    computed (the TPU kernel's `run` predicate); only diagonal tiles are
+//    masked, and keys past T are zero-filled.  P is rounded to bf16 for the
+//    P V product (the TPU kernel keeps P in f32): a known difference, held
+//    at the bf16 tolerance.  Bound on an H100: tensor-core operations, 4 * D
+//    flops per visible (query, key) pair at 989 TFLOP/s bf16; mma.sync and
+//    a two-stage cp.async ring reach a fraction of it (attention_tile.cuh).
+//
+// 2. CUDA-core walk (flash_kernel), the exact f32 path (and bf16 at any
+//    other D).  One block of 4 warps per (16 query rows, kv head, batch
+//    row); each warp keeps 4 rows' q, running max, sum and f32 accumulator
+//    in registers, lanes splitting head_dim (d = lane + 32k).  The block
+//    walks the keys in tiles of 32 staged in shared memory as f32, stopping
+//    at its last position under the causal mask, and P stays f32.  Bound:
+//    the f32 FMA rate (67 TFLOP/s); each score is a warp-wide butterfly sum,
+//    so it runs far from that.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "attention_tile.cuh"
 
 namespace {
 
@@ -176,10 +186,73 @@ int by_head_dim(const void* q, const void* k, const void* v, void* out, int B,
   }
 }
 
+// ------------------------------------------------- 1. tensor-core tile
+// The tile's view of one (batch row, kv head).
+struct FlashSrc {
+  using KV = __nv_bfloat16;
+  const __nv_bfloat16* q;
+  __nv_bfloat16* out;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const void* base;
+  int rows, Tn, H, KH, G, D, b, h, causal;
+
+  __device__ size_t qoff(int r) const {
+    return (((size_t)b * Tn + r / G) * H + (size_t)h * G + r % G) * D;
+  }
+  __device__ const __nv_bfloat16* q_row(int r) const { return q + qoff(r); }
+  __device__ __nv_bfloat16* out_row(int r) const { return out + qoff(r); }
+  __device__ int pos(int r) const { return causal ? r / G : Tn - 1; }
+  __device__ size_t koff(int kp) const {
+    return (((size_t)b * Tn + kp) * KH + h) * (size_t)D;
+  }
+  __device__ const __nv_bfloat16* k_row(int kp) const { return k + koff(kp); }
+  __device__ const __nv_bfloat16* v_row(int kp) const { return v + koff(kp); }
+};
+
+template <int D>
+__global__ void __launch_bounds__(attn_tile::kThreads)
+flash_tile_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  __nv_bfloat16* __restrict__ out, int Tn, int H, int KH,
+                  int causal, float scale) {
+  extern __shared__ int4 tile_smem[];
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int G = H / KH;
+  const int rows = Tn * G;
+  // heaviest causal tiles (the last rows) first
+  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int row0 = tile * attn_tile::kRows;
+  const int last = min(row0 + attn_tile::kRows, rows) - 1;
+  const int kend = causal ? last / G + 1 : Tn;
+  const FlashSrc src{q, out, k, v, k, rows, Tn, H, KH, G, D, b, h, causal};
+  attn_tile::run<D, false>(src, row0, kend, scale,
+                           reinterpret_cast<char*>(tile_smem));
+}
+
+template <int D>
+int launch_tile(const void* q, const void* k, const void* v, void* out,
+                int B, int Tn, int H, int KH, int causal, float scale,
+                cudaStream_t stream) {
+  constexpr size_t smem = attn_tile::smem_bytes<D, false>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_tile_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int rows = Tn * (H / KH);
+  dim3 grid((rows + attn_tile::kRows - 1) / attn_tile::kRows, KH, B);
+  flash_tile_kernel<D><<<grid, attn_tile::kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      Tn, H, KH, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike).  Returns the
-// cudaError_t of the launch.
+// The CUDA-core walk (variant 2).  dtype: 0 = float32, 1 = bfloat16 (q, k,
+// v and out alike).  Returns the cudaError_t of the launch.
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
                                const void* v, void* out, int B, int Tn, int H,
                                int KH, int D, int causal, float scale,
@@ -192,4 +265,20 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
     return by_head_dim<__nv_bfloat16>(q, k, v, out, B, Tn, H, KH, D, causal,
                                       scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core tile (variant 1): bf16 q, k, v and out; D 64, 80 or 128.
+// Returns the cudaError_t of the launch.
+extern "C" int flash_attention_tile(const void* q, const void* k,
+                                    const void* v, void* out, int B, int Tn,
+                                    int H, int KH, int D, int causal,
+                                    float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H % KH != 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 64: return launch_tile<64>(q, k, v, out, B, Tn, H, KH, causal, scale, s);
+    case 80: return launch_tile<80>(q, k, v, out, B, Tn, H, KH, causal, scale, s);
+    case 128: return launch_tile<128>(q, k, v, out, B, Tn, H, KH, causal, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,48 +1,73 @@
 // Paged chunk attention through block tables, for sm_90a.
 //
 // Replaces the Pallas TPU kernels of repro/kernels/paged_attention.py:
-// paged_attention_chunk (:148, body _chunk_kernel_body :57) and its int8
-// variant _paged_chunk_kernel_q8 (:129).  Each query row (one of the C*G
-// rows of a request's chunk for one kv head) attends, with an online
-// softmax, over the pool tokens its block table names at absolute
-// positions <= its own.  Only the first num_live[b] table slots are
-// walked: the loop bound takes the place of the TPU index-map clamp, so
-// dead slots are neither read nor computed.  An all-masked row writes 0
-// (the max(l, 1e-30) guard of the TPU kernel).
+// paged_attention_chunk (:148, body _chunk_kernel_body :57, decode wrapper
+// paged_attention :227) and its int8 variant _paged_chunk_kernel_q8
+// (:129).  Each query row (one of the C*G rows of a request's chunk for
+// one kv head) attends, with an online softmax, over the pool tokens its
+// block table names at absolute positions <= its own.  Only the first
+// num_live[b] table slots are walked: the loop bound takes the place of
+// the TPU index-map clamp, so dead slots are neither read nor computed.
+// An all-masked row writes 0 (the max(l, 1e-30) guard of the TPU kernel).
 //
-// Design.  One block of 4 warps per (tile of 16 query rows, kv head,
-// request).  Each warp owns 4 rows and keeps their q, running max, sum and
-// f32 accumulator in registers, lanes splitting head_dim (d = lane + 32k,
-// so head_dim 80 needs no padding: lanes past D hold zeros).  For each
-// live table slot the block stages the (bs, D) K and V tiles in shared
-// memory as f32, once for all 16 rows, then each warp walks the tile's
-// tokens: a warp-wide butterfly sum gives the score, and tokens past a
-// row's position are skipped, so masked and dead tokens are exact no-ops
-// and the bounded walk equals the unbounded one bitwise.
+// Three variants; the wrapper (paged_attention.py: choose_variant) picks
+// one from the query type, the pool type, C*G, D and bs:
+//
+// 1. Tensor-core tile (paged_tile_kernel), bf16 q over bf16 or int8 pages
+//    with C*G >= 16: prefill and mixed chunks.  The shared tile of
+//    attention_tile.cuh, with each 64-key tile gathered key by key through
+//    the table (a page of one kv head is a (bs, D) box of row stride
+//    KH*D; a D = 80 row is 160 B in bf16 and 80 B in int8, both whole
+//    16-byte chunks).  The walk bound is min(num_live[b], deepest block
+//    any row of the tile sees), so the bounded and the unbounded walk
+//    visit the same tiles.  Bound on an H100: tensor-core operations for
+//    a long chunk (4*D flops per visible pair, re-reading the pages once
+//    per 64-row tile), HBM bytes for a short one.
+//
+// 2. Split-KV decode (paged_split_kernel + split_combine_kernel), every
+//    query type, C*G < 16: decode steps, where one query row per kv head
+//    leaves a tensor-core tile 15/16 empty.  Decode is bound by HBM bytes
+//    (each live page read once per (request, kv head): 3.35 TB/s), so the
+//    work is spread over the pages: the grid is (splits, KH, B), a split
+//    being a fixed run of pages_per_split table slots counted from slot 0
+//    (its boundaries depend on the table width and bs alone, never on
+//    num_live or the walk bound).  A split copies its K and V rows into
+//    shared memory with cp.async, all at once, while it loads q; scores,
+//    P and the partial accumulator are f32 on the CUDA cores; it writes
+//    (m, l, acc) to f32 scratch.  A split past the bound writes
+//    (m = -1e30, l = 0, acc = 0), an exact no-op in the combine, so the
+//    bounded and unbounded walks give identical bits.  The combine kernel
+//    merges each row's splits in split order (deterministic) and applies
+//    the max(l, 1e-30) guard.
+//
+// 3. CUDA-core walk (paged_chunk_kernel), the exact path: an f32 q with
+//    C*G >= 16, and every shape the other two do not take.  One block of 4
+//    warps per (16 query rows, kv head, request); each warp keeps 4 rows'
+//    q, running max, sum and f32 accumulator in registers, lanes splitting
+//    D (d = lane + 32k).  Each live slot's (bs, D) K and V are staged in
+//    shared memory as f32; a warp-wide butterfly sum gives each score, and
+//    masked tokens are skipped outright.  Bound on an H100: the f32 FMA
+//    rate (67 TFLOP/s) for a chunk; it stays as the exact reference.
 //
 // Storage types.  The query is f32 or bf16; the pools are f32, fp16, bf16
-// or int8, whatever the query's type.  Every pool type is converted to f32
-// as its tile is staged, and nothing after the staging depends on it.  An
-// int8 tile is staged as float(code) * scale, with the (block, kv head)
-// scale read once per live slot through the same table entry as the page
-// (k_scales[tables[b, j] * KH + h]).  int8 -> f32 is exact and the
-// multiply is one f32 rounding, so the fused kernel equals the f32 kernel
-// on materialized dequantized pools bitwise, and the scale of a dead slot
-// is never read.
-//
-// What bounds it on an H100: decode (C == 1) reads each live K/V page once
-// per (request, kv head), so it is bound by HBM bytes (3.35 TB/s): 1 byte
-// per element plus 4 bytes of scale per (block, kv head) for int8 pools.
-// A prefill chunk re-reads the same pages for every row tile and does
-// 4*C*ctx*D flops per head on CUDA cores (no tensor cores yet, wgmma and
-// TMA are later work), so it is bound by the f32 FMA rate.
+// or int8.  In the split and CUDA-core variants every pool type becomes f32
+// as it is read, an int8 code as __fmul_rn(float(code), scale) with the
+// (block, kv head) scale read once per live slot through the same table
+// entry as the page (k_scales[tables[b, j] * KH + h]): the same rounding
+// as quant.dequantize_pool, so with an f32 q the fused kernel equals the
+// kernel on materialized dequantized pools bitwise.  The tile variant folds
+// the scales instead (attention_tile.cuh).  A dead slot's scale is never
+// read in any variant.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "attention_tile.cuh"
 
 namespace {
 
@@ -50,6 +75,9 @@ constexpr int kWarps = 4;
 constexpr int kRowsPerWarp = 4;
 constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
 constexpr float kNegInf = -1e30f;
+constexpr int kSplitKeys = 128;  // keys one split covers at most
+constexpr int kSplitRows = 15;   // C * G of the split variant
+constexpr size_t kMaxSmem = 227 * 1024;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -70,6 +98,23 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Let a kernel take `bytes` of dynamic shared memory (the default stops at
+// 48 KB, static shared memory included).
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// ------------------------------------------------------- 3. CUDA-core walk
 // q, out: (B, C, KH, G, D) of TQ; pools: (N, bs, KH, D) of TKV; scales:
 // (N, KH) f32, read for int8 pools only; tables: (B, nblk); qpos: (B, C);
 // live: (B,).  All contiguous.
@@ -193,6 +238,311 @@ paged_chunk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
   }
 }
 
+// ------------------------------------------------- 1. tensor-core tile
+// The tile's view of one (request, kv head): rows are the request's C*G
+// (position, group) pairs; key kp lives in table slot kp / bs, row kp % bs.
+template <typename TKV>
+struct PagedSrc {
+  using KV = TKV;
+  const __nv_bfloat16* q;
+  __nv_bfloat16* out;
+  const TKV* k_pool;
+  const TKV* v_pool;
+  const float* k_scales;
+  const float* v_scales;
+  const int32_t* table;  // this request's row of the tables
+  const int32_t* qpos;   // this request's positions
+  const void* base;
+  int rows, C, KH, G, D, bs, b, h;
+
+  __device__ size_t qoff(int r) const {
+    return (((size_t)b * C + r / G) * KH + h) * (size_t)G * D +
+           (size_t)(r % G) * D;
+  }
+  __device__ const __nv_bfloat16* q_row(int r) const { return q + qoff(r); }
+  __device__ __nv_bfloat16* out_row(int r) const { return out + qoff(r); }
+  __device__ int pos(int r) const { return qpos[r / G]; }
+  __device__ size_t page(int kp) const { return (size_t)table[kp / bs]; }
+  __device__ size_t koff(int kp) const {
+    return ((page(kp) * bs + kp % bs) * KH + h) * (size_t)D;
+  }
+  __device__ const TKV* k_row(int kp) const { return k_pool + koff(kp); }
+  __device__ const TKV* v_row(int kp) const { return v_pool + koff(kp); }
+  __device__ const float* k_scale(int kp) const {
+    return k_scales + page(kp) * KH + h;
+  }
+  __device__ const float* v_scale(int kp) const {
+    return v_scales + page(kp) * KH + h;
+  }
+};
+
+template <int D, typename TKV>
+__global__ void __launch_bounds__(attn_tile::kThreads)
+paged_tile_kernel(const __nv_bfloat16* __restrict__ q,
+                  const TKV* __restrict__ k_pool,
+                  const TKV* __restrict__ v_pool,
+                  const float* __restrict__ k_scales,
+                  const float* __restrict__ v_scales,
+                  const int32_t* __restrict__ tables,
+                  const int32_t* __restrict__ qpos,
+                  const int32_t* __restrict__ live,
+                  __nv_bfloat16* __restrict__ out, int C, int KH, int G,
+                  int bs, int nblk, float scale) {
+  extern __shared__ int4 tile_smem[];
+  __shared__ int smax;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int rows = C * G;
+  const int row0 = blockIdx.x * attn_tile::kRows;
+  // walk bound: the live slots, cut to the deepest block any row sees
+  if (threadIdx.x == 0) smax = -1;
+  __syncthreads();
+  const int r = row0 + threadIdx.x;
+  int p = (threadIdx.x < attn_tile::kRows && r < rows)
+              ? qpos[(size_t)b * C + r / G] : -1;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) p = max(p, __shfl_xor_sync(0xffffffffu, p, o));
+  if ((threadIdx.x & 31) == 0) atomicMax(&smax, p);
+  __syncthreads();
+  const int maxpos = smax;
+  const int jend = maxpos < 0 ? 0 : min(min(live[b], nblk), maxpos / bs + 1);
+  const PagedSrc<TKV> src{q, out, k_pool, v_pool, k_scales, v_scales,
+                          tables + (size_t)b * nblk, qpos + (size_t)b * C,
+                          k_pool, rows, C, KH, G, D, bs, b, h};
+  attn_tile::run<D, std::is_same<TKV, int8_t>::value>(
+      src, row0, jend * bs, scale, reinterpret_cast<char*>(tile_smem));
+}
+
+// ----------------------------------------------------- 2. split-KV decode
+template <typename TKV>
+__device__ __forceinline__ void load16_f32(const TKV* p, float* x,
+                                           float scl) {
+  constexpr int kEpc = 16 / sizeof(TKV);
+  const int4 raw = *reinterpret_cast<const int4*>(p);
+  const TKV* v = reinterpret_cast<const TKV*>(&raw);
+#pragma unroll
+  for (int e = 0; e < kEpc; ++e) {
+    if constexpr (std::is_same<TKV, int8_t>::value)
+      x[e] = __fmul_rn(to_f32(v[e]), scl);
+    else
+      x[e] = to_f32(v[e]);
+  }
+}
+
+// Partials: m, l (B, KH, R, nsplit); acc (B, KH, R, nsplit, D), all f32.
+template <typename TQ, typename TKV>
+__global__ void __launch_bounds__(kWarps * 32)
+paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
+                   const TKV* __restrict__ v_pool,
+                   const float* __restrict__ k_scales,
+                   const float* __restrict__ v_scales,
+                   const int32_t* __restrict__ tables,
+                   const int32_t* __restrict__ qpos,
+                   const int32_t* __restrict__ live,
+                   float* __restrict__ part_m, float* __restrict__ part_l,
+                   float* __restrict__ part_acc, int C, int KH, int G, int D,
+                   int bs, int nblk, int pps, int nsplit, float scale) {
+  constexpr bool kQuantized = std::is_same<TKV, int8_t>::value;
+  constexpr int kEpc = 16 / sizeof(TKV);  // elements per 16-byte chunk
+  extern __shared__ int4 split_smem[];
+  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int R = C * G;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t prow = ((size_t)b * KH + h) * R;  // row r's partials: prow + r
+
+  int maxpos = -1;
+  for (int c = 0; c < C; ++c) maxpos = max(maxpos, qpos[(size_t)b * C + c]);
+  const int jend = maxpos < 0 ? 0 : min(min(live[b], nblk), maxpos / bs + 1);
+  const int j0 = s * pps, j1 = min(j0 + pps, jend);
+  if (j1 <= j0) {  // past the walk bound: the combine's exact no-op
+    for (int r = tid; r < R; r += blockDim.x) {
+      part_m[(prow + r) * nsplit + s] = kNegInf;
+      part_l[(prow + r) * nsplit + s] = 0.f;
+    }
+    for (int e = tid; e < R * D; e += blockDim.x)
+      part_acc[((prow + e / D) * nsplit + s) * D + e % D] = 0.f;
+    return;
+  }
+  const int key0 = j0 * bs, nk = (j1 - j0) * bs;
+  const int cpr = D / kEpc;  // 16-byte chunks per row
+
+  TKV* sk = reinterpret_cast<TKV*>(split_smem);  // (kSplitKeys, D)
+  TKV* sv = sk + kSplitKeys * D;                 // (kSplitKeys, D)
+  float* sq = reinterpret_cast<float*>(sv + kSplitKeys * D);  // (R, D)
+  float* ss = sq + R * D;                        // (R, kSplitKeys)
+  float* ksk = ss + R * kSplitKeys;              // (kSplitKeys,) int8 only
+  float* vsk = ksk + kSplitKeys;                 // (kSplitKeys,) int8 only
+  float* red = vsk + kSplitKeys;                 // (kWarps, R, D)
+  int* spage = reinterpret_cast<int*>(red + kWarps * R * D);  // (pps,)
+  float* kspage = reinterpret_cast<float*>(spage + pps);      // (pps,)
+  float* vspage = kspage + pps;                               // (pps,)
+
+  // the split's live table entries (and int8 scales), read once
+  for (int j = tid; j < j1 - j0; j += blockDim.x) {
+    const int page = tables[(size_t)b * nblk + j0 + j];
+    spage[j] = page;
+    if constexpr (kQuantized) {
+      kspage[j] = k_scales[(size_t)page * KH + h];
+      vspage[j] = v_scales[(size_t)page * KH + h];
+    }
+  }
+  __syncthreads();
+  // every K and V row of the split in flight at once
+  for (int c = tid; c < nk * cpr; c += blockDim.x) {
+    const int key = c / cpr, part = c % cpr;
+    const size_t row =
+        (((size_t)spage[key / bs] * bs + key % bs) * KH + h) * (size_t)D +
+        (size_t)part * kEpc;
+    attn_tile::cp_async16(sk + key * D + part * kEpc, k_pool + row, true);
+    attn_tile::cp_async16(sv + key * D + part * kEpc, v_pool + row, true);
+  }
+  attn_tile::cp_async_commit();
+  for (int e = tid; e < R * D; e += blockDim.x) {
+    const int r = e / D, d = e % D;
+    sq[e] = to_f32(q[(((size_t)b * C + r / G) * KH + h) * (size_t)G * D +
+                     (size_t)(r % G) * D + d]);
+  }
+  if constexpr (kQuantized) {
+    for (int key = tid; key < nk; key += blockDim.x) {
+      ksk[key] = kspage[key / bs];
+      vsk[key] = vspage[key / bs];
+    }
+  }
+  attn_tile::cp_async_wait<0>();
+  __syncthreads();
+
+  // scores, a thread per key: s = (q . k) * scale, masked by position
+  if (tid < nk) {
+    const int kp = key0 + tid;
+    const float ksc = kQuantized ? ksk[tid] : 1.f;
+    float acc[kSplitRows];
+#pragma unroll
+    for (int r = 0; r < kSplitRows; ++r) acc[r] = 0.f;
+    const TKV* kr = sk + tid * D;
+    for (int part = 0; part < cpr; ++part) {
+      float x[kEpc];
+      load16_f32(kr + part * kEpc, x, ksc);
+#pragma unroll
+      for (int r = 0; r < kSplitRows; ++r) {
+        if (r < R) {
+          const float* qr = sq + r * D + part * kEpc;
+#pragma unroll
+          for (int e = 0; e < kEpc; ++e) acc[r] = fmaf(qr[e], x[e], acc[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kSplitRows; ++r) {
+      if (r < R)
+        ss[r * kSplitKeys + tid] =
+            kp <= qpos[(size_t)b * C + r / G] ? acc[r] * scale : -INFINITY;
+    }
+  }
+  __syncthreads();
+
+  // the split's softmax, a warp per row: m, l out; P in place of S
+  for (int r = warp; r < R; r += kWarps) {
+    float* sr = ss + r * kSplitKeys;
+    float mx = kNegInf;
+    for (int key = lane; key < nk; key += 32) mx = fmaxf(mx, sr[key]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int key = lane; key < nk; key += 32) {
+      const float p = expf(sr[key] - mx);
+      sr[key] = p;
+      sum += p;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      part_m[(prow + r) * nsplit + s] = mx;
+      part_l[(prow + r) * nsplit + s] = sum;
+    }
+  }
+  __syncthreads();
+
+  // acc = P V: warp w takes keys [32w, 32w + 32) in order, lanes split D
+  // (d = lane + 32i); the four warps' sums are added in warp order
+  float a[kSplitRows][4];
+#pragma unroll
+  for (int r = 0; r < kSplitRows; ++r)
+    a[r][0] = a[r][1] = a[r][2] = a[r][3] = 0.f;
+  const int kw1 = min(32 * warp + 32, nk);
+  for (int key = 32 * warp; key < kw1; ++key) {
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = lane + 32 * i;
+      v[i] = d < D ? to_f32(sv[key * D + d]) : 0.f;
+      if constexpr (kQuantized) v[i] = __fmul_rn(v[i], vsk[key]);
+    }
+#pragma unroll
+    for (int r = 0; r < kSplitRows; ++r) {
+      if (r < R) {
+        const float p = ss[r * kSplitKeys + key];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[r][i] = fmaf(p, v[i], a[r][i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kSplitRows; ++r) {
+    if (r < R) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int d = lane + 32 * i;
+        if (d < D) red[(warp * R + r) * D + d] = a[r][i];
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < R * D; e += blockDim.x) {
+    float sum = red[e];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) sum += red[w * R * D + e];
+    part_acc[((prow + e / D) * nsplit + s) * D + e % D] = sum;
+  }
+}
+
+// Merge each row's splits in split order; out = acc / max(l, 1e-30).
+// Grid (R, KH, B): the first warp turns the splits' maxima into weights
+// e^(m_s - M) in shared memory and lane 0 sums l_s e^(m_s - M) in split
+// order; then one thread per d folds acc_s e^(m_s - M) in split order.
+template <typename TQ>
+__global__ void __launch_bounds__(kWarps * 32)
+split_combine_kernel(const float* __restrict__ part_m,
+                     const float* __restrict__ part_l,
+                     const float* __restrict__ part_acc, TQ* __restrict__ out,
+                     int C, int KH, int G, int D, int nsplit) {
+  extern __shared__ float weight[];  // (nsplit,)
+  __shared__ float inv;
+  const int r = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const size_t row = ((size_t)b * KH + h) * (C * G) + r;
+  const float* m = part_m + row * nsplit;
+  if (threadIdx.x < 32) {
+    float mx = kNegInf;
+    for (int s = threadIdx.x; s < nsplit; s += 32) mx = fmaxf(mx, m[s]);
+    mx = warp_max(mx);
+    for (int s = threadIdx.x; s < nsplit; s += 32) weight[s] = expf(m[s] - mx);
+    __syncwarp();
+    if (threadIdx.x == 0) {
+      const float* l = part_l + row * nsplit;
+      float sum = 0.f;
+      for (int s = 0; s < nsplit; ++s) sum = fmaf(l[s], weight[s], sum);
+      inv = 1.f / fmaxf(sum, 1e-30f);
+    }
+  }
+  __syncthreads();
+  const int d = threadIdx.x;
+  if (d >= D) return;
+  const float* acc = part_acc + row * nsplit * D + d;
+  float o = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < nsplit; ++s) o = fmaf(acc[(size_t)s * D], weight[s], o);
+  store_f32(out + (((size_t)b * C + r / G) * KH + h) * (size_t)G * D +
+                (size_t)(r % G) * D + d,
+            o * inv);
+}
+
+// ------------------------------------------------------------- launchers
 struct Args {
   const void *q, *k, *v, *ksc, *vsc, *tables, *qpos, *live;
   void* out;
@@ -206,7 +556,10 @@ int launch(const Args& a) {
   const int rows = a.C * a.G;
   dim3 grid((rows + kRowsPerBlock - 1) / kRowsPerBlock, a.KH, a.B);
   const size_t smem = 2 * (size_t)a.bs * a.D * sizeof(float);
-  paged_chunk_kernel<TQ, TKV, DPL><<<grid, kWarps * 32, smem, a.stream>>>(
+  auto kernel = paged_chunk_kernel<TQ, TKV, DPL>;
+  static const cudaError_t attr = allow_smem(kernel, kMaxSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<grid, kWarps * 32, smem, a.stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), static_cast<const float*>(a.ksc),
       static_cast<const float*>(a.vsc), static_cast<const int32_t*>(a.tables),
@@ -237,11 +590,91 @@ int by_pool_type(int kv_dtype, const Args& a) {
   }
 }
 
+template <int D, typename TKV>
+int launch_tile(const Args& a) {
+  constexpr size_t smem =
+      attn_tile::smem_bytes<D, std::is_same<TKV, int8_t>::value>();
+  auto kernel = paged_tile_kernel<D, TKV>;
+  static const cudaError_t attr = allow_smem(kernel, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int rows = a.C * a.G;
+  dim3 grid((rows + attn_tile::kRows - 1) / attn_tile::kRows, a.KH, a.B);
+  kernel<<<grid, attn_tile::kThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const TKV*>(a.k),
+      static_cast<const TKV*>(a.v), static_cast<const float*>(a.ksc),
+      static_cast<const float*>(a.vsc), static_cast<const int32_t*>(a.tables),
+      static_cast<const int32_t*>(a.qpos), static_cast<const int32_t*>(a.live),
+      static_cast<__nv_bfloat16*>(a.out), a.C, a.KH, a.G, a.bs, a.nblk,
+      a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TKV>
+int tile_by_head_dim(const Args& a) {
+  switch (a.D) {
+    case 64: return launch_tile<64, TKV>(a);
+    case 80: return launch_tile<80, TKV>(a);
+    case 128: return launch_tile<128, TKV>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename TQ, typename TKV>
+int launch_split(const Args& a, float* pm, float* pl, float* pacc, int pps,
+                 int nsplit) {
+  const int R = a.C * a.G;
+  auto kernel = paged_split_kernel<TQ, TKV>;
+  const auto smem_for = [&](int rows, int d) {
+    return 2 * (size_t)kSplitKeys * d * sizeof(TKV) +
+           sizeof(float) * ((size_t)rows * d + (size_t)rows * kSplitKeys +
+                            5 * (size_t)kSplitKeys +
+                            (size_t)kWarps * rows * d);
+  };
+  static const cudaError_t attr = allow_smem(kernel, smem_for(kSplitRows, 128));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<dim3(nsplit, a.KH, a.B), kWarps * 32, smem_for(R, a.D), a.stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
+      static_cast<const TKV*>(a.v), static_cast<const float*>(a.ksc),
+      static_cast<const float*>(a.vsc), static_cast<const int32_t*>(a.tables),
+      static_cast<const int32_t*>(a.qpos), static_cast<const int32_t*>(a.live),
+      pm, pl, pacc, a.C, a.KH, a.G, a.D, a.bs, a.nblk, pps, nsplit, a.scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  split_combine_kernel<TQ><<<dim3(R, a.KH, a.B), kWarps * 32,
+                             nsplit * sizeof(float), a.stream>>>(
+      pm, pl, pacc, static_cast<TQ*>(a.out), a.C, a.KH, a.G, a.D, nsplit);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TQ>
+int split_by_pool_type(int kv_dtype, const Args& a, float* pm, float* pl,
+                       float* pacc, int pps, int nsplit) {
+  switch (kv_dtype) {
+    case 0: return launch_split<TQ, float>(a, pm, pl, pacc, pps, nsplit);
+    case 1: return launch_split<TQ, __nv_bfloat16>(a, pm, pl, pacc, pps, nsplit);
+    case 2: return launch_split<TQ, __half>(a, pm, pl, pacc, pps, nsplit);
+    case 3: return launch_split<TQ, int8_t>(a, pm, pl, pacc, pps, nsplit);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+Args make_args(const void* q, const void* k, const void* v,
+               const void* k_scales, const void* v_scales, const void* tables,
+               const void* qpos, const void* live, void* out, int B, int C,
+               int KH, int G, int D, int bs, int nblk, float scale,
+               void* stream) {
+  return Args{q, k, v, k_scales, v_scales, tables, qpos, live, out,
+              B, C, KH, G, D, bs, nblk, scale,
+              static_cast<cudaStream_t>(stream)};
+}
+
 }  // namespace
 
 // Type codes: 0 = float32, 1 = bfloat16, 2 = float16, 3 = int8.  q_dtype is
-// 0 or 1; kv_dtype any of the four, and 3 needs k_scales / v_scales.
-// Returns the cudaError_t of the launch.
+// 0 or 1; kv_dtype any of the four, and 3 needs k_scales / v_scales.  Each
+// entry point returns the cudaError_t of its launches.
+
+// The CUDA-core walk (variant 3).
 extern "C" int paged_attention_chunk(int q_dtype, int kv_dtype, const void* q,
                                      const void* k, const void* v,
                                      const void* k_scales,
@@ -250,12 +683,58 @@ extern "C" int paged_attention_chunk(int q_dtype, int kv_dtype, const void* q,
                                      void* out, int B, int C, int KH, int G,
                                      int D, int bs, int nblk, float scale,
                                      void* stream) {
-  const Args a{q, k, v, k_scales, v_scales, tables, qpos, live, out,
-               B, C, KH, G, D, bs, nblk, scale,
-               static_cast<cudaStream_t>(stream)};
+  const Args a = make_args(q, k, v, k_scales, v_scales, tables, qpos, live,
+                           out, B, C, KH, G, D, bs, nblk, scale, stream);
   if (kv_dtype == 3 && (k_scales == nullptr || v_scales == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (2 * (size_t)bs * D * sizeof(float) > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   if (q_dtype == 0) return by_pool_type<float>(kv_dtype, a);
   if (q_dtype == 1) return by_pool_type<__nv_bfloat16>(kv_dtype, a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core tile (variant 1): bf16 q; kv_dtype 1 (bf16) or 3 (int8);
+// D 64, 80 or 128.
+extern "C" int paged_attention_tile(int kv_dtype, const void* q,
+                                    const void* k, const void* v,
+                                    const void* k_scales,
+                                    const void* v_scales, const void* tables,
+                                    const void* qpos, const void* live,
+                                    void* out, int B, int C, int KH, int G,
+                                    int D, int bs, int nblk, float scale,
+                                    void* stream) {
+  const Args a = make_args(q, k, v, k_scales, v_scales, tables, qpos, live,
+                           out, B, C, KH, G, D, bs, nblk, scale, stream);
+  if (kv_dtype == 1) return tile_by_head_dim<__nv_bfloat16>(a);
+  if (kv_dtype == 3 && k_scales != nullptr && v_scales != nullptr)
+    return tile_by_head_dim<int8_t>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The split-KV walk and its combine (variant 2): C*G <= 15, D a multiple of
+// 16 up to 128, pages_per_split * bs <= 128.  part_m, part_l (B, KH, C*G,
+// nsplit) and part_acc (B, KH, C*G, nsplit, D) are f32 scratch.
+extern "C" int paged_attention_split(
+    int q_dtype, int kv_dtype, const void* q, const void* k, const void* v,
+    const void* k_scales, const void* v_scales, const void* tables,
+    const void* qpos, const void* live, void* part_m, void* part_l,
+    void* part_acc, void* out, int B, int C, int KH, int G, int D, int bs,
+    int nblk, int pps, int nsplit, float scale, void* stream) {
+  const Args a = make_args(q, k, v, k_scales, v_scales, tables, qpos, live,
+                           out, B, C, KH, G, D, bs, nblk, scale, stream);
+  if (C * G > kSplitRows || D % 16 != 0 || D > 128 || pps < 1 ||
+      pps * bs > kSplitKeys || (long long)pps * nsplit < nblk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kv_dtype == 3 && (k_scales == nullptr || v_scales == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* pm = static_cast<float*>(part_m);
+  float* pl = static_cast<float*>(part_l);
+  float* pacc = static_cast<float*>(part_acc);
+  if (q_dtype == 0)
+    return split_by_pool_type<float>(kv_dtype, a, pm, pl, pacc, pps, nsplit);
+  if (q_dtype == 1)
+    return split_by_pool_type<__nv_bfloat16>(kv_dtype, a, pm, pl, pacc, pps,
+                                             nsplit);
   return static_cast<int>(cudaErrorInvalidValue);
 }

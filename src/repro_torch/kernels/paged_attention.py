@@ -1,4 +1,4 @@
-"""Paged chunk attention through WFE-managed block tables: the CUDA kernel.
+"""Paged chunk attention through WFE-managed block tables: the CUDA kernels.
 
 Replaces the Pallas TPU kernel ``repro/kernels/paged_attention.py``
 ``paged_attention_chunk`` (:148), its decode wrapper ``paged_attention``
@@ -6,10 +6,20 @@ Replaces the Pallas TPU kernel ``repro/kernels/paged_attention.py``
 attend over K/V scattered across the pool blocks a request's table names,
 causally by absolute position, walking only the first
 ``num_live_blocks[b]`` table slots.  Int8 pools come with per-(block,
-kv-head) f32 scales, and the kernel dequantizes each tile as it stages it.
-The kernel lives in ``csrc/paged_attention.cu`` (design and what bounds it
-on an H100 are in its header); this module checks the operands and
-launches it on the current CUDA stream.  Its plain PyTorch versions are
+kv-head) f32 scales, and the kernels dequantize as they read.
+
+``csrc/paged_attention.cu`` holds three variants (design and what bounds
+each on an H100 are in its header); :func:`choose_variant` picks one from
+the query and pool types, the C*G query rows per kv head, D and bs:
+
+- ``"split"``: the split-KV walk and its combine, for C*G < 16 (decode);
+- ``"tile"``: the tensor-core tile of ``csrc/attention_tile.cuh``, for a
+  bf16 query over bf16 or int8 pages (prefill and mixed chunks);
+- ``"cuda_core"``: the CUDA-core walk, the exact path (an f32 query's
+  chunks, and the shapes the other two do not take).
+
+This module checks the operands and launches the chosen variant on the
+current CUDA stream.  Its plain PyTorch versions are
 ``paged_attention_chunk_ref`` and ``paged_attention_chunk_int8_ref``.
 
 The wrappers here take CUDA tensors only; ``ops`` selects between them
@@ -31,21 +41,67 @@ from .ref import (check_scales, paged_attention_chunk_int8_ref,
 __all__ = ["paged_attention_chunk", "paged_attention",
            "paged_attention_chunk_ref", "paged_attention_ref",
            "paged_attention_chunk_int8_ref", "paged_attention_int8_ref",
-           "LAUNCHES", "LAUNCHES_Q8"]
+           "choose_variant", "split_plan", "LAUNCHES", "LAUNCHES_Q8",
+           "VARIANT_LAUNCHES"]
 
-#: the kernel's type codes: the query's, and the pools' (any of the four)
+#: the kernels' type codes: the query's, and the pools' (any of the four)
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
               torch.int8: 3}
 MAX_HEAD_DIM = 128
-#: shared memory the kernel stages per block: one f32 (bs, D) K and V tile
-MAX_TILE_BYTES = 48 * 1024
+#: shared memory a block may use on an H100 (227 KB); the CUDA-core walk
+#: stages one f32 (bs, D) K and V tile, 8 * bs * D bytes
+MAX_SMEM_BYTES = 227 * 1024
+#: head dims the tensor-core tile is instantiated for (multiples of 16)
+TILE_HEAD_DIMS = (64, 80, 128)
+#: the split-KV walk: fewer query rows than this per (request, kv head),
+#: and at most SPLIT_KEYS keys (pages_per_split * bs) per split
+SPLIT_MAX_ROWS = 16
+SPLIT_KEYS = 128
 
-
-#: launches over float pools (``LAUNCHES.n``), bumped once per launch
+#: launches over float pools (``LAUNCHES.n``), bumped once per call
 LAUNCHES = build.Counter()
 #: launches over int8 pools, the port of ``_paged_chunk_kernel_q8``
 LAUNCHES_Q8 = build.Counter()
+#: launches per kernel variant, whatever the pools: ``tile``, ``split``
+#: and its ``combine``, and the CUDA-core walk ``cuda_core``
+VARIANT_LAUNCHES = {name: build.Counter()
+                    for name in ("tile", "split", "combine", "cuda_core")}
+
+
+def choose_variant(q_dtype: torch.dtype, kv_dtype: torch.dtype, rows: int,
+                   d: int, bs: int) -> str:
+    """The kernel variant for a query of ``q_dtype`` with ``rows`` = C*G
+    rows per (request, kv head), head dim ``d`` and block size ``bs`` over
+    pools of ``kv_dtype``: ``"split"``, ``"tile"`` or ``"cuda_core"``."""
+    if rows < SPLIT_MAX_ROWS:
+        fits = d % 16 == 0 and d <= MAX_HEAD_DIM and bs <= SPLIT_KEYS
+        return "split" if fits else "cuda_core"
+    if (q_dtype == torch.bfloat16 and d in TILE_HEAD_DIMS
+            and kv_dtype in (torch.bfloat16, torch.int8)):
+        return "tile"
+    return "cuda_core"
+
+
+def split_plan(nblk: int, bs: int) -> tuple:
+    """(pages_per_split, n_splits) of the split-KV walk over a table of
+    ``nblk`` slots: splits of ``SPLIT_KEYS // bs`` pages counted from slot
+    0.  It depends on the table's width and bs alone, never on
+    ``num_live_blocks``, so the bounded and the unbounded walk cut the
+    pages at the same slots."""
+    pps = max(1, SPLIT_KEYS // bs)
+    return pps, max(1, -(-nblk // pps))
+
+
+def _check_limits(variant: str, d: int, bs: int) -> None:
+    """The chosen variant's own limits (the split and tile variants'
+    shapes are guaranteed by ``choose_variant``)."""
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} exceeds the kernels' {MAX_HEAD_DIM}")
+    if variant == "cuda_core" and 8 * bs * d > MAX_SMEM_BYTES:
+        raise ValueError(f"block_size {bs} x head_dim {d} exceeds the "
+                         f"CUDA-core kernel's shared memory (8*bs*D <= "
+                         f"{MAX_SMEM_BYTES})")
 
 
 def _check(name: str, t: torch.Tensor, ndim: int, dtype=None) -> None:
@@ -94,10 +150,8 @@ def paged_attention_chunk(q: torch.Tensor, k_pool: torch.Tensor,
     if (pkh, pd) != (kh, d) or v_pool.shape != k_pool.shape:
         raise ValueError(f"pool shape {tuple(k_pool.shape)} does not match "
                          f"q {tuple(q.shape)}")
-    if d > MAX_HEAD_DIM or 8 * bs * d > MAX_TILE_BYTES:
-        raise ValueError(f"head_dim {d} / block_size {bs} exceed the "
-                         f"kernel's limits (D <= {MAX_HEAD_DIM}, "
-                         f"8*bs*D <= {MAX_TILE_BYTES})")
+    variant = choose_variant(q.dtype, k_pool.dtype, c * g, d, bs)
+    _check_limits(variant, d, bs)
     _check("tables", tables, 2, torch.int32)
     _check("q_positions", q_positions, 2, torch.int32)
     nblk = tables.shape[1]
@@ -111,15 +165,38 @@ def paged_attention_chunk(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0 or c == 0:
         return out
+    lib = build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = build.library().paged_attention_chunk(
-        _Q_DTYPES[q.dtype], _KV_DTYPES[k_pool.dtype], q.data_ptr(),
-        k_pool.data_ptr(), v_pool.data_ptr(),
-        k_scales.data_ptr() if quantized else None,
-        v_scales.data_ptr() if quantized else None,
-        tables.data_ptr(), q_positions.data_ptr(), num_live_blocks.data_ptr(),
-        out.data_ptr(), b, c, kh, g, d, bs, nblk, float(scale), stream)
-    build.check(err, "paged_attention_chunk")
+    operands = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                k_scales.data_ptr() if quantized else None,
+                v_scales.data_ptr() if quantized else None,
+                tables.data_ptr(), q_positions.data_ptr(),
+                num_live_blocks.data_ptr())
+    kv = _KV_DTYPES[k_pool.dtype]
+    if variant == "split":
+        pps, nsplit = split_plan(nblk, bs)
+        part = dict(dtype=torch.float32, device=q.device)
+        part_m = torch.empty((b, kh, c * g, nsplit), **part)
+        part_l = torch.empty((b, kh, c * g, nsplit), **part)
+        part_acc = torch.empty((b, kh, c * g, nsplit, d), **part)
+        err = lib.paged_attention_split(
+            _Q_DTYPES[q.dtype], kv, *operands, part_m.data_ptr(),
+            part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(), b, c, kh,
+            g, d, bs, nblk, pps, nsplit, float(scale), stream)
+        launched = ("split", "combine")
+    elif variant == "tile":
+        err = lib.paged_attention_tile(
+            kv, *operands, out.data_ptr(), b, c, kh, g, d, bs, nblk,
+            float(scale), stream)
+        launched = ("tile",)
+    else:
+        err = lib.paged_attention_chunk(
+            _Q_DTYPES[q.dtype], kv, *operands, out.data_ptr(), b, c, kh, g, d,
+            bs, nblk, float(scale), stream)
+        launched = ("cuda_core",)
+    build.check(err, f"paged_attention_chunk ({variant})")
+    for name in launched:
+        VARIANT_LAUNCHES[name].n += 1
     (LAUNCHES_Q8 if quantized else LAUNCHES).n += 1
     return out
 

@@ -153,6 +153,160 @@ def paged_attention_int8_ref(q, k_pool, v_pool, k_scales, v_scales, tables,
                                k_scales=k_scales, v_scales=v_scales)
 
 
+# ----------------------------------- models of the CUDA variants' algebra
+# The paged kernel's split-KV and tensor-core variants (csrc/
+# paged_attention.cu) compute the same function as the plain version in
+# another algebra.  These plain models repeat that algebra: the CPU tests
+# hold it against the reference, and on the card the kernels are held
+# against it (the split-KV walk near-bitwise in f32).
+SPLIT_EMPTY_M = -1e30  # the running max's floor: a split past the bound
+
+
+def _walk_bound(q_positions, num_live_blocks, bs, nblk):
+    """Table slots each request walks: min(live, nblk, deepest causal
+    block), 0 for a request with no query row at a position >= 0."""
+    last = q_positions.long().max(dim=1).values
+    live = (torch.full_like(last, nblk) if num_live_blocks is None
+            else num_live_blocks.long())
+    jend = torch.minimum(torch.clamp(live, 0, nblk),
+                         torch.clamp(last, min=0) // bs + 1)
+    return torch.where(last >= 0, jend, 0)
+
+
+def _rows(q, q_positions):
+    """q (B, C, KH, G, D) as f32 (B, KH, C*G, D) rows, position-major, and
+    each row's position (B, C*G)."""
+    b, c, kh, g, d = q.shape
+    rows = q.float().permute(0, 2, 1, 3, 4).reshape(b, kh, c * g, d)
+    pos = q_positions.long()[:, :, None].expand(b, c, g).reshape(b, c * g)
+    return rows, pos
+
+
+def split_kv_partials_ref(q, k_pool, v_pool, tables, q_positions,
+                          num_live_blocks=None, *, pages_per_split: int,
+                          n_splits: int, scale=None, k_scales=None,
+                          v_scales=None):
+    """The split-KV walk's partials: m, l (B, KH, C*G, n_splits) and acc
+    (B, KH, C*G, n_splits, D), f32.  Split s covers table slots
+    [s * pages_per_split, (s + 1) * pages_per_split), cut to the request's
+    walk bound; within it a row's scores are (q . k) * scale over the keys
+    at positions <= its own, m = max(-1e30, max s), P = exp(s - m), l = sum
+    P and acc = P V.  A split past the bound gives (-1e30, 0, 0).  Int8
+    pages are dequantized as they are read (code * scale)."""
+    check_scales(k_pool, k_scales, v_scales)
+    b, c, kh, g, d = q.shape
+    bs = k_pool.shape[1]
+    nblk = tables.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    jend = _walk_bound(q_positions, num_live_blocks, bs, nblk)
+    rows, pos = _rows(q, q_positions)
+    r = c * g
+    dev = q.device
+    m = torch.full((b, kh, r, n_splits), SPLIT_EMPTY_M, device=dev)
+    l = torch.zeros((b, kh, r, n_splits), device=dev)
+    acc = torch.zeros((b, kh, r, n_splits, d), device=dev)
+    tables = tables.long()
+    for s in range(n_splits):
+        j0 = s * pages_per_split
+        ids = tables[:, j0:j0 + pages_per_split]
+        w = ids.shape[1]
+        if w == 0:
+            continue
+        kvpos = j0 * bs + torch.arange(w * bs, device=dev)
+        key_ok = kvpos[None, :] < (torch.clamp(jend, min=j0) * bs)[:, None]
+        k = _gather_pages(k_pool, k_scales, ids).reshape(b, w * bs, kh, d)
+        v = _gather_pages(v_pool, v_scales, ids).reshape(b, w * bs, kh, d)
+        # a slot past the bound is never read: its page may hold NaN
+        k = torch.where(key_ok[:, :, None, None], k, 0.0)
+        v = torch.where(key_ok[:, :, None, None], v, 0.0)
+        sc = torch.einsum("bkrd,bskd->bkrs", rows, k) * scale
+        vis = key_ok[:, None, :] & (kvpos[None, None, :] <= pos[:, :, None])
+        sc = torch.where(vis[:, None], sc, -math.inf)
+        ms = torch.clamp(sc.amax(dim=-1), min=SPLIT_EMPTY_M)
+        p = torch.exp(sc - ms[..., None])
+        m[..., s] = ms
+        l[..., s] = p.sum(dim=-1)
+        acc[..., s, :] = torch.einsum("bkrs,bskd->bkrd", p, v)
+    return m, l, acc
+
+
+def combine_splits_ref(m, l, acc):
+    """Merge each row's splits in split order, one at a time (the combine
+    kernel's fold): M = max m, out = sum acc_s e^(m_s - M) / max(sum l_s
+    e^(m_s - M), 1e-30).  A split of (-1e30, 0, 0) adds exact zeros.
+    Returns (B, KH, R, D) f32."""
+    mx = m.amax(dim=-1, keepdim=True)
+    w = torch.exp(m - mx)
+    tot = torch.zeros(m.shape[:-1], device=m.device)
+    out = torch.zeros(acc.shape[:-2] + acc.shape[-1:], device=m.device)
+    for s in range(m.shape[-1]):
+        tot = tot + l[..., s] * w[..., s]
+        out = out + acc[..., s, :] * w[..., s, None]
+    return out / torch.clamp(tot, min=1e-30)[..., None]
+
+
+def paged_attention_split_ref(q, k_pool, v_pool, tables, q_positions,
+                              num_live_blocks=None, *, pages_per_split: int,
+                              n_splits: int, scale=None, k_scales=None,
+                              v_scales=None):
+    """The split-KV walk and its combine: (B, C, KH, G, D) in q's dtype."""
+    b, c, kh, g, d = q.shape
+    m, l, acc = split_kv_partials_ref(
+        q, k_pool, v_pool, tables, q_positions, num_live_blocks,
+        pages_per_split=pages_per_split, n_splits=n_splits, scale=scale,
+        k_scales=k_scales, v_scales=v_scales)
+    out = combine_splits_ref(m, l, acc).reshape(b, kh, c, g, d)
+    return out.permute(0, 2, 1, 3, 4).to(q.dtype).contiguous()
+
+
+def paged_attention_tile_ref(q, k_pool, v_pool, tables, q_positions,
+                             num_live_blocks=None, *, scale=None,
+                             k_scales=None, v_scales=None):
+    """The tensor-core tile's algebra over bf16 or int8 pages: q and the
+    pages go into the product as bf16 (int8 codes exactly, undequantized);
+    the k scale of a key's slot multiplies that key's column of S; P =
+    exp(S - m) and l = sum P stay f32; the v scale multiplies P's column,
+    and P is rounded to bf16 before P V.  Returns (B, C, KH, G, D) in q's
+    dtype."""
+    check_scales(k_pool, k_scales, v_scales)
+    b, c, kh, g, d = q.shape
+    bs = k_pool.shape[1]
+    nblk = tables.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    jend = _walk_bound(q_positions, num_live_blocks, bs, nblk)
+    w = int(jend.max()) if b else 0
+    if w == 0:
+        return torch.zeros_like(q)
+    rows, pos = _rows(q.to(torch.bfloat16), q_positions)
+    ids = tables.long()[:, :w]
+    kvpos = torch.arange(w * bs, device=q.device)
+    key_ok = kvpos[None, :] < (jend * bs)[:, None]                # (B, S)
+
+    def pages(pool):
+        x = pool[ids].to(torch.bfloat16).float()      # codes are exact
+        return torch.where(key_ok[:, :, None, None],
+                           x.reshape(b, w * bs, kh, d), 0.0)
+
+    def col_scales(scales):                           # (B, KH, 1, S)
+        if scales is None:
+            return torch.ones((b, kh, 1, w * bs), device=q.device)
+        sc = scales.float()[ids].repeat_interleave(bs, dim=1)   # (B, S, KH)
+        sc = torch.where(key_ok[:, :, None], sc, 0.0)
+        return sc.permute(0, 2, 1)[:, :, None, :]
+
+    s = torch.einsum("bkrd,bskd->bkrs", rows, pages(k_pool))
+    s = s * (col_scales(k_scales) * scale)
+    vis = key_ok[:, None, :] & (kvpos[None, None, :] <= pos[:, :, None])
+    s = torch.where(vis[:, None], s, -math.inf)
+    mx = torch.clamp(s.amax(dim=-1, keepdim=True), min=SPLIT_EMPTY_M)
+    p = torch.exp(s - mx)
+    l = p.sum(dim=-1, keepdim=True)
+    pv = (p * col_scales(v_scales)).to(torch.bfloat16).float()
+    o = torch.einsum("bkrs,bskd->bkrd", pv, pages(v_pool))
+    o = (o / torch.clamp(l, min=1e-30)).reshape(b, kh, c, g, d)
+    return o.permute(0, 2, 1, 3, 4).to(q.dtype).contiguous()
+
+
 # ------------------------------------------------------------ flash attention
 NEG_INF = -1e30
 
