@@ -7,15 +7,21 @@ Phases, each printing its own line; any failure exits non-zero:
 1. Build every CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc
    for sm_90a (one nvcc per source, started together) and print the card's
    name and power limit.
-2. Hold each kernel variant against its plain PyTorch version at main-path
+2. The era scan at five shapes (``ERA_SHAPES``: R 4096 x S 512 and
+   x S 5120, R 64 x S 64, R 65536 x S 5120 with 5% and 50% of the slots
+   valid), every reservation form in one slot vector: the kernel, its
+   plain version and the ``cuda`` backend the pool calls, each bitwise
+   against the NumPy backend; eager, graph-replay and pool-call times,
+   and its bound over valid pairs and over all pairs.
+   Then hold each kernel variant against its plain PyTorch version at main-path
    shapes (stablelm-3b: KH 32, G 1, head_dim 80, block_size 16), time
    kernel, plain version and the PyTorch library yardstick, and compute
    each kernel's bound (the least time the card could take for the same
    work): paged attention over bf16/f32 and over int8 pools at decode
    (the split-KV walk) and at a mixed step (the tensor-core tile; the f32
    query's CUDA-core walk), also in the engine's own mixed layout (decode
-   rows padded to the chunk bucket); the era scan; dense flash attention
-   at the stablelm-3b and starcoder2-3b prefill shapes.  The split-KV walk
+   rows padded to the chunk bucket); dense flash attention at the
+   stablelm-3b and starcoder2-3b prefill shapes.  The split-KV walk
    and the tile are also held against the plain models of their own
    algebra (``ref.paged_attention_split_ref``, ``paged_attention_tile_ref``).
    ``ms`` is the time per eager call (host launch cost included where it
@@ -26,7 +32,10 @@ Phases, each printing its own line; any failure exits non-zero:
    path's kernels were launched, and that decode steps took the split-KV
    walk and mixed and prefill steps the tensor-core tile (launches printed
    by variant and by plan kind); then (3b) the same trace on the same
-   weights with int8 KV pages.  Then check the model step against the
+   weights with int8 KV pages; then (3c) the 8-request profile-window
+   trace once under each pool scheme (WFE, Crystalline, HE, EBR, 2GEIBR),
+   bf16 pages: each completes 8/8, drains, launches the era scan and emits
+   the WFE run's greedy tokens.  Then check the model step against the
    plain path on the CPU at full width and reduced depth.
 4. A WFE forced-slow-path run at reduced depth.
 
@@ -512,51 +521,108 @@ def check_flash(b, t, h, kh, d, dtype, causal, gen, dev, tol, tag):
                 variant=variant)
 
 
-def check_era_scan(r, s, gen, dev):
-    from repro_torch.core.era_table import _can_delete_numpy, batched_can_delete
+#: the era scan's shapes (retired rows R, slots S, share of valid slots):
+#: R 4096 x S 512 and R 4096 x S 5120 (kernel_bench.py:38, T 512 x H 10)
+#: as before, R 64 x S 64 (the engine's scans: 8 threads x 8 slots), and
+#: R 65536 x S 5120, the "tens of thousands of retiring blocks per tick" of
+#: repro/kernels/era_scan.py:3-6, with 5% and 50% of the slots valid
+ERA_SHAPES = ((4096, 512, 0.05), (4096, 5120, 0.05), (64, 64, 0.05),
+              (65536, 5120, 0.05), (65536, 5120, 0.5))
+
+
+def era_cases() -> dict:
+    """The era-scan inputs of every shape, NumPy int32, from
+    ``tests/torch_era_cases.py`` (every reservation form in one slot
+    vector)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_era_cases import sample_case
+
+    return {shape: sample_case(*shape, seed=SEED) for shape in ERA_SHAPES}
+
+
+def _host_ms(fn, reps: int) -> float:
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+#: int32 instructions one pair of a retired row and a slot needs: two
+#: compares (ISETP, the second taking the first's predicate as its AND
+#: input) and half a three-input predicate OR (one PLOP3 folds two pairs
+#: into a row's conflict bit), as in the scan's compiled inner loop
+#: (``cuobjdump -sass`` of the built library)
+ERA_PAIR_OPS = 2.5
+
+
+def check_era_scan(case, dev):
+    """The era scan at one shape: the kernel, the plain version and the
+    ``cuda`` backend from the NumPy mirrors, each bitwise against the
+    NumPy backend; timed eager (``ms``), from a CUDA-graph replay
+    (``device_ms``), and through the backend the pool calls (``pool_ms``,
+    host clock) beside the ``numpy`` backend.  Two bounds, at
+    ``ERA_PAIR_OPS`` int32 operations per pair: pairs of a retired row and
+    a VALID slot (``bound_ms``, the work the function needs), and pairs of
+    a row and any slot (``bound_all_pairs_ms``, the count before the
+    redesign); bytes (each input read once, the mask written once) bound
+    neither."""
+    from repro_torch.core.era_table import (_can_delete_numpy,
+                                            batched_can_delete)
     from repro_torch.kernels import era_scan as es
     from repro_torch.kernels.ref import INF_ERA32, era_scan_interval_ref
 
-    rng = np.random.default_rng(SEED)
-    alloc = rng.integers(0, 1000, r).astype(np.int32)
-    retire = (alloc + rng.integers(0, 100, r)).astype(np.int32)
-    lo = rng.integers(0, 1100, s).astype(np.int32)
-    hi = np.where(rng.random(s) < 0.5, lo, lo + rng.integers(0, 40, s)
-                  ).astype(np.int32)
-    lo[rng.random(s) < 0.95] = INF_ERA32  # mostly empty slots, as in serving
+    alloc, retire, lo, hi = case
+    r, s = len(alloc), len(lo)
+    valid = int(np.count_nonzero(lo != INF_ERA32))
     want = _can_delete_numpy(alloc, retire, lo, hi)
     t = [torch.from_numpy(a).to(dev) for a in (alloc, retire, lo, hi)]
-    got = es.era_scan_interval(*t).cpu().numpy()
-    backend = batched_can_delete(alloc, retire, lo, hi, backend="cuda")
-    ok = np.array_equal(got, want) and np.array_equal(backend, want)
-    phase(f"era_scan R={r} S={s} vs numpy", ok,
-          f"bit-identical {ok}, {int(want.sum())} of {r} deletable")
     saved = es.LAUNCHES.n
-    ms = time_ms(lambda: es.era_scan_interval(*t), reps=50)
-    device_ms = time_ms(lambda: es.era_scan_interval(*t), reps=50, graph=True)
-    plain_ms = time_ms(lambda: era_scan_interval_ref(*t), reps=20)
-    t0 = time.perf_counter()
-    for _ in range(20):
-        batched_can_delete(alloc, retire, lo, hi, backend="cuda")
-    backend_ms = (time.perf_counter() - t0) / 20 * 1e3
-    t0 = time.perf_counter()
-    for _ in range(20):
-        batched_can_delete(alloc, retire, lo, hi, backend="numpy")
-    numpy_ms = (time.perf_counter() - t0) / 20 * 1e3
-    es.LAUNCHES.n = saved
+    kern = lambda: es.era_scan_interval(*t)  # noqa: E731
+    got = kern().cpu().numpy()
+    backend = batched_can_delete(alloc, retire, lo, hi, backend="cuda")
+    plain = era_scan_interval_ref(*t).cpu().numpy()
+    ok = all(np.array_equal(x, want) for x in (got, backend, plain))
+    phase(f"era_scan R={r} S={s} ({valid} valid) vs numpy", ok,
+          f"bit-identical {ok} (kernel, cuda backend, plain), "
+          f"{int(want.sum())} of {r} deletable")
+    ms = time_ms(kern, reps=50)
+    device_ms = time_ms(kern, reps=50, graph=True)
+    plain_ms = time_ms(lambda: era_scan_interval_ref(*t), reps=10)
+    big = r * s > 10 ** 7
+    pool_ms = _host_ms(lambda: batched_can_delete(alloc, retire, lo, hi,
+                                                  backend="cuda"), 50)
+    numpy_ms = _host_ms(lambda: batched_can_delete(alloc, retire, lo, hi,
+                                                   backend="numpy"),
+                        3 if big else 20)
+    es.LAUNCHES.n = saved  # comparison launches do not count
     nbytes = 4 * (2 * r + 2 * s) + r
-    ops = 4 * r * s  # three compares and one OR per (block, slot) pair
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = ops / PEAK_OPS[torch.int32] * 1e3
+    t_ops = ERA_PAIR_OPS * r * valid / PEAK_OPS[torch.int32] * 1e3
+    t_all = ERA_PAIR_OPS * r * s / PEAK_OPS[torch.int32] * 1e3
     bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    print(f"  era_scan R={r} S={s}: kernel {ms:.4f} ms (graph replay "
-          f"{device_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by}); cuda backend from NumPy "
-          f"mirrors {backend_ms:.4f} ms (host clock), numpy backend "
-          f"{numpy_ms:.4f} ms (host clock)", flush=True)
-    return dict(max_abs_err=float(np.abs(got.astype(int) - want.astype(int)).max()),
-                ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by, library_ms=None,
-                library_device_ms=None)
+    print(f"  era_scan R={r} S={s} valid={valid}: kernel {ms:.4f} ms (graph "
+          f"replay {device_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{bound:.3e} ms ({by}, valid pairs; {t_all:.3e} ms over all "
+          f"pairs, {t_bytes:.3e} ms of bytes); pool call (cuda backend from "
+          f"NumPy mirrors) {pool_ms:.4f} ms, numpy backend {numpy_ms:.4f} ms "
+          f"(host clock) on {gpu_name_and_limit()}", flush=True)
+    err = np.abs(np.stack([got, backend]).astype(int) - want.astype(int))
+    return dict(max_abs_err=float(err.max(initial=0)), ms=ms,
+                device_ms=device_ms, pool_ms=pool_ms, numpy_ms=numpy_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                bound_all_pairs_ms=t_all, library_ms=None,
+                library_device_ms=None, valid_slots=valid)
+
+
+def era_scan_phase(dev, cases) -> list:
+    rows = []
+    for shape, case in cases.items():
+        r, s, v = shape
+        rows.append(dict(case=f"R {r} S {s}, {v:.0%} valid slots",
+                         **check_era_scan(case, dev)))
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ------------------------------------------------------------ phase 3: engine
@@ -590,9 +656,85 @@ def serve_full_width(dev):
     # random weights: near-tie argmaxes flip freely, so no floor is set
     print(f"  int8 vs bf16 pages, greedy token match: {match}/{total} "
           f"({match / total:.3f})", flush=True)
+    schemes = serve_schemes(cfg, params, dev)
     del params
     torch.cuda.empty_cache()
-    return launches, launches_q8
+    return launches, launches_q8, schemes
+
+
+#: the pool schemes of the reference (tests/test_serve_runtime.py:25); HP
+#: is refused by the pool and Leak never frees, so neither serves
+POOL_SCHEMES = ("WFE", "Crystalline", "HE", "EBR", "2GEIBR")
+
+
+def serve_schemes(cfg, params, dev) -> dict:
+    """Phase 3c: the 8-request profile-window trace (prompts of 256-768
+    tokens, 16 new tokens each) on the same full-width weights with bf16
+    pages and ``use_kernel=True``, once under each pool scheme at the
+    engine's defaults.  Each run must complete 8/8, drain to zero
+    unreclaimed blocks with every block free, launch the era scan and the
+    paged-attention kernel (counts zeroed just before the run, read just
+    after), and emit the WFE run's greedy tokens: the scheme decides when
+    a page is reused, never what a step computes.  Returns each scheme's
+    era-scan launches and its largest scan's (rows, valid slots)."""
+    from repro_torch.kernels import era_scan as es
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import INF_ERA32
+    from repro_torch.serve import ServeEngine
+
+    n_blocks = 2048
+    scans: list = []
+    scan = ops.can_delete_blocks_interval
+
+    def recorded(alloc, retire, lo, hi, **kwargs):
+        if len(alloc):  # an empty scan launches nothing
+            scans.append((len(alloc), int(np.count_nonzero(
+                np.asarray(lo) != INF_ERA32))))
+        return scan(alloc, retire, lo, hi, **kwargs)
+
+    out, first = {}, None
+    ops.can_delete_blocks_interval = recorded  # the era table's lookup
+    try:
+        for scheme in POOL_SCHEMES:
+            engine = ServeEngine(cfg, params, n_blocks=n_blocks,
+                                 block_size=16, max_batch=8, chunk_size=256,
+                                 scheme=scheme, use_kernel=True, device=dev)
+            tid = engine.pool.register_thread()
+            scans.clear()
+            es.LAUNCHES.n = pa.LAUNCHES.n = pa.LAUNCHES_Q8.n = 0
+            wall, by_kind, reqs = _window(engine, tid, cfg, salt=1)
+            scan_n, attn_n = es.LAUNCHES.n, pa.LAUNCHES.n
+            toks = [r.generated for r in reqs]
+            first = toks if first is None else first
+            stats = engine.sched.stats
+            largest = max(scans, default=(0, 0))
+            gen = sum(map(len, toks))
+            ok = (stats["completed"] == 8 and engine.pool.unreclaimed() == 0
+                  and engine.pool.free_blocks == n_blocks and scan_n > 0
+                  and attn_n > 0 and pa.LAUNCHES_Q8.n == 0
+                  and len(scans) == scan_n and toks == first
+                  and all(len(t) == 16 for t in toks))
+            phase(f"serve stablelm-3b full width, {scheme}, 8 requests", ok,
+                  f"completed={stats['completed']} unreclaimed="
+                  f"{engine.pool.unreclaimed()} free_blocks="
+                  f"{engine.pool.free_blocks}/{n_blocks} era_scan launches="
+                  f"{scan_n} paged_attention launches={attn_n} tokens == "
+                  f"WFE run's {toks == first}")
+            kinds = ", ".join(f"{k}: {len(v)} steps, mean "
+                              f"{np.mean(v) * 1e3:.2f} ms"
+                              for k, v in sorted(by_kind.items()))
+            print(f"  {scheme}: largest scan {largest[0]} retired rows x "
+                  f"{largest[1]} valid slots over {len(scans)} scans; host "
+                  f"clock (spreads widely between calls): {gen / wall:.2f} "
+                  f"output tokens/s, {wall:.3f} s wall; {kinds}", flush=True)
+            out[scheme] = dict(era_scan_launches=scan_n,
+                               largest_scan=list(largest))
+            del engine
+            torch.cuda.empty_cache()
+    finally:
+        ops.can_delete_blocks_interval = scan
+    return out
 
 
 def serve_trace(cfg, params, dev, kv_dtype):
@@ -722,9 +864,9 @@ def variants_by_plan_kind(engine):
 def _window(engine, tid, cfg, salt):
     """Serve 8 requests (256-768-token prompts, 16 new tokens) through the
     engine's own tick/execute_plan, timing each step on the host clock by
-    plan kind.  Returns (wall seconds, {kind: [seconds]})."""
-    for p in trace(8, 256, 768, cfg.vocab_size, salt):
-        engine.submit(p, max_new_tokens=16)
+    plan kind.  Returns (wall seconds, {kind: [seconds]}, the requests)."""
+    reqs = [engine.submit(p, max_new_tokens=16)
+            for p in trace(8, 256, 768, cfg.vocab_size, salt)]
     by_kind: dict = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -740,7 +882,7 @@ def _window(engine, tid, cfg, salt):
         by_kind.setdefault(plan.kind, []).append(time.perf_counter() - ts)
     engine.drain(tid)
     torch.cuda.synchronize()
-    return time.perf_counter() - t0, by_kind
+    return time.perf_counter() - t0, by_kind, reqs
 
 
 def profile_window(engine, tid, cfg):
@@ -750,7 +892,7 @@ def profile_window(engine, tid, cfg):
     time / the unprofiled window's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    wall, by_kind = _window(engine, tid, cfg, salt=1)
+    wall, by_kind, _ = _window(engine, tid, cfg, salt=1)
     kinds = ", ".join(f"{k}: {len(v)} steps, mean {np.mean(v) * 1e3:.2f} ms"
                       for k, v in sorted(by_kind.items()))
     print(f"  window: {wall:.3f} s wall; {kinds}", flush=True)
@@ -886,6 +1028,7 @@ def main() -> int:
     phase("build", True, f"{lib.name} in {time.perf_counter() - t0:.1f} s "
           f"from {len(build.sources())} sources")
     print(gpu_name_and_limit(), flush=True)
+    era_rows = era_scan_phase(dev, era_cases())
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     attn = {}
@@ -913,12 +1056,8 @@ def main() -> int:
     check_flash(2, 1024, 8, 2, 64, torch.float32, False, gen, dev, 1e-4,
                 "GQA")
     torch.cuda.empty_cache()
-    scan = check_era_scan(4096, 512, gen, dev)
-    check_era_scan(4096, 5120, gen, dev)  # kernel_bench.py:38 (T 512 x H 10)
-    check_era_scan(64, 64, gen, dev)      # the engine's scans: 8 threads x 8 slots
-    torch.cuda.empty_cache()
 
-    launches, launches_q8 = serve_full_width(dev)
+    launches, launches_q8, schemes = serve_full_width(dev)
     step_matches_cpu(dev)
     forced_slow_path(dev)
 
@@ -959,12 +1098,17 @@ def main() -> int:
                      source="src/repro_torch/kernels/csrc/flash_attention.cu",
                      replaces="src/repro/kernels/flash_attention.py:83",
                      launches=0, on_main_path=False)
+    # the era scan's rows, the first at R 4096 S 512; ``launches``: the bf16
+    # serving run's, ``launches_by_scheme``: phase 3c's
     kernels += [
         dict(name="era_scan_interval", route="cuda",
              source="src/repro_torch/kernels/csrc/era_scan.cu",
              replaces="src/repro/kernels/era_scan.py:96",
-             launches=launches["era_scan_interval"], case="R 4096 S 512",
-             **scan),
+             launches=launches["era_scan_interval"],
+             launches_by_scheme={k: v["era_scan_launches"]
+                                 for k, v in schemes.items()}, **row)
+        for row in era_rows]
+    kernels += [
         dict(name="flash_attention", case="stablelm-3b prefill", **flash_src,
              **flash),
         dict(name="flash_attention", case="starcoder2-3b prefill",

@@ -1,5 +1,6 @@
-"""Paged KV-cache block pool with WFE reclamation, the scheduler that hands
-out its pages, and the refcounted prefix cache.  The sharded pool of
+"""Paged KV-cache block pool with SMR reclamation (WFE by default, or any
+pool scheme of ``repro_torch.core``), the scheduler that hands out its
+pages, and the refcounted prefix cache.  The sharded pool of
 ``repro.blocks`` is not ported yet."""
 
 from .block_pool import BlockPool, KVBlock, PoolExhausted

@@ -1,4 +1,5 @@
-"""Era-stamped device block pool, reclaimed with the paper's WFE scheme.
+"""Era-stamped device block pool, reclaimed with one of the paper's SMR
+schemes: WFE by default, or Crystalline, HE, EBR or 2GEIBR (``scheme=``).
 
 The SMR mapping (DESIGN.md §2.1):
 
@@ -109,7 +110,8 @@ class _EpochNode(Block):
 
 
 class BlockPool:
-    """WFE-managed pool of ``n_blocks`` KV pages.
+    """SMR-managed pool of ``n_blocks`` KV pages (WFE unless ``scheme`` says
+    otherwise; HP is refused).
 
     The device arrays themselves (one (n_blocks, block_size, KH, D) pool per
     layer) are owned by the serving engine; this class owns slot lifetime.

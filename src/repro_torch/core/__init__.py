@@ -1,8 +1,9 @@
-"""Core library: the paper's SMR schemes (WFE so far) on NumPy era mirrors.
+"""Core library: the paper's SMR schemes on NumPy era mirrors.
 
 ``make_scheme(name, ...)`` is the registry the pool and the serving engine
-use to select a reclamation scheme.  Only WFE is ported; the other schemes
-of ``repro.core`` raise until they are.
+use to select a reclamation scheme (paper §5 scheme list): WFE,
+Crystalline, HE, HP, EBR, 2GEIBR and Leak.  The batched cleanups of the
+era and epoch schemes take the backends ``scalar|numpy|torch|cuda``.
 """
 
 from __future__ import annotations
@@ -20,21 +21,29 @@ from .atomics import (
     PtrView,
     TriplePtrView,
 )
+from .crystalline import Crystalline
+from .ebr import EBR
 from .era_table import (BACKENDS, ArrayRetireList, EraTable,
                         batched_can_delete)
+from .hazard_eras import HazardEras
+from .hazard_pointers import HazardPointers
+from .ibr import IBR2GE
+from .leak import LeakMemory
 from .smr_base import POISON, Block, SMRScheme
 from .wfe import WFE
 
-SCHEMES = {"WFE": WFE}
-
-#: schemes of the reference registry that this package does not carry yet
-NOT_PORTED = ("Crystalline", "HE", "HP", "EBR", "2GEIBR", "Leak")
+SCHEMES = {
+    "WFE": WFE,
+    "Crystalline": Crystalline,
+    "HE": HazardEras,
+    "HP": HazardPointers,
+    "EBR": EBR,
+    "2GEIBR": IBR2GE,
+    "Leak": LeakMemory,
+}
 
 
 def make_scheme(name: str, max_threads: int, **kwargs: Any) -> SMRScheme:
-    if name in NOT_PORTED:
-        raise ValueError(f"SMR scheme {name!r} is not ported yet; "
-                         f"one of {sorted(SCHEMES)}")
     try:
         cls = SCHEMES[name]
     except KeyError:
@@ -60,6 +69,12 @@ __all__ = [
     "Block",
     "SMRScheme",
     "WFE",
+    "Crystalline",
+    "HazardEras",
+    "HazardPointers",
+    "EBR",
+    "IBR2GE",
+    "LeakMemory",
     "SCHEMES",
     "make_scheme",
 ]

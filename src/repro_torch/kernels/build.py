@@ -42,6 +42,7 @@ SIGNATURES = {
                               _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, ctypes.c_float, _P],
     "era_scan_interval": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "era_scan_round_trip": [_P, _P, _P, _P, _I, _I, _P],
     "flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         ctypes.c_float, _P],
     "flash_attention_tile": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -32,16 +32,20 @@ def can_delete_blocks_interval(alloc_eras, retire_eras, res_lo, res_hi, *,
     """The era table's ``torch`` (``device="cpu"``) and ``cuda`` backends.
 
     Takes the NumPy int32 mirrors, runs the scan on ``device`` and returns
-    the (R,) bool mask as NumPy.  On CUDA the mirrors are copied to the
-    card and the mask back; that copy is part of the backend's cost.
+    the (R,) bool mask as NumPy.  On CUDA the mirrors go to the card and
+    the mask back in one round trip (``era_scan.round_trip``: one packed
+    pinned copy each way and one stream sync); that round trip is part of
+    the backend's cost.
     """
-    args = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
-            for a in (alloc_eras, retire_eras, res_lo, res_hi)]
-    if _on_cpu(args[0]):
-        mask = ref.era_scan_interval_ref(*args)
-    else:
-        mask = era_scan.era_scan_interval(*args)
-    return mask.cpu().numpy()
+    arrays = [np.ascontiguousarray(a, np.int32)
+              for a in (alloc_eras, retire_eras, res_lo, res_hi)]
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        mask = ref.era_scan_interval_ref(*map(torch.from_numpy, arrays))
+        return mask.numpy()
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel or plain version for device {dev}")
+    return era_scan.round_trip(*arrays, dev)
 
 
 def paged_decode_attention(q, k_pool, v_pool, tables, lengths,

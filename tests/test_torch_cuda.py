@@ -9,7 +9,11 @@ orders and use different exp paths); bf16 2e-2 (the output is rounded to
 bf16, and the tensor-core tiles also round P to bf16 for the P V product:
 about one bf16 ulp).  Bounded vs unbounded walks, NaN-poisoned dead pages
 and scales, the fused int8 kernel against the f32 kernel on dequantized
-pools, and the era scan are held bitwise.  Every variant of the paged
+pools, and the era scan are held bitwise: at every chip_smoke shape,
+reservation form (points, intervals, EBR's open form, empty slots), both
+row tiles (reached by R) and boundary era, through the kernel and through the ``cuda``
+backend's pinned round trip (also from four threads at once), and on each
+pool scheme's own mirrors.  Every variant of the paged
 kernel (``choose_variant``: split-KV walk, tensor-core tile, CUDA-core
 walk) is swept over C, G, D and bs, and the split-KV walk and the tile
 are also held against the plain models of their own algebra in ``ref``.
@@ -34,6 +38,7 @@ from repro_torch.kernels.ref import (INF_ERA32, era_scan_interval_ref,
                                      paged_attention_ref,
                                      paged_attention_split_ref,
                                      paged_attention_tile_ref)
+from torch_era_cases import FORMS, sample_case
 
 pytestmark = pytest.mark.cuda
 
@@ -403,3 +408,181 @@ def test_era_scan_bit_identical(dev, r, s):
                                   want)
     np.testing.assert_array_equal(
         batched_can_delete(alloc, retire, lo, hi, backend="cuda"), want)
+
+
+# ------------------------------------------------ era scan, redesigned
+ERA_SHAPES = [(4096, 512, 0.05), (4096, 5120, 0.05), (64, 64, 0.05),
+              (65536, 5120, 0.05), (65536, 5120, 0.5)]
+ERA_FORMS = [("point",), ("interval",), ("open",), FORMS]
+#: the kernel takes four rows per lane from this many retired rows on
+#: (``kWideRows`` in csrc/era_scan.cu), one below it
+WIDE_ROWS = 33792
+
+
+def _era_check(dev, alloc, retire, lo, hi):
+    """The kernel, the plain version and the ``cuda`` backend's round
+    trip, each bitwise against the NumPy backend."""
+    want = _can_delete_numpy(alloc, retire, lo, hi)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+         for a in (alloc, retire, lo, hi)]
+    got = era_scan.era_scan_interval(*t).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(era_scan_interval_ref(*t).cpu().numpy(),
+                                  want)
+    got = batched_can_delete(alloc, retire, lo, hi, backend="cuda")
+    assert got.dtype == np.bool_
+    np.testing.assert_array_equal(got, want)
+    return want
+
+
+@pytest.mark.parametrize("forms", ERA_FORMS, ids="+".join)
+@pytest.mark.parametrize("r,s,valid", ERA_SHAPES + [
+    (WIDE_ROWS - 1, 5120, 0.5), (WIDE_ROWS, 5120, 0.5)])
+def test_era_scan_shapes_and_forms(dev, r, s, valid, forms):
+    """The chip_smoke shapes and both sides of the row-tile threshold,
+    each reservation form alone and all mixed; both deletable and kept
+    rows occur."""
+    args = sample_case(r, s, valid, seed=r + s, forms=forms)
+    want = _era_check(dev, *args)
+    assert want.any() and not want.all()
+
+
+E0, EMAX, INF = 0, INF_ERA32 - 1, INF_ERA32
+
+
+@pytest.mark.parametrize("r,s", [(0, 0), (0, 5), (1, 0), (1, 1), (5, 0),
+                                 (0, 1), (1, 2049), (33, 1), (129, 4097),
+                                 (WIDE_ROWS, 1), (WIDE_ROWS + 33, 2049)])
+@pytest.mark.parametrize("fill", ["empty", "conflict", "boundary"])
+def test_era_scan_edges(dev, r, s, fill):
+    """R or S of 0 and 1, tiles and chunks cut ragged at both row tiles,
+    every slot empty, every row in conflict, and the boundary eras 0,
+    INT32_MAX - 1 and lo = INT32_MAX."""
+    rng = np.random.default_rng(r * 7919 + s)
+    if fill == "empty":
+        alloc = rng.integers(0, INF, r).astype(np.int32)
+        retire = np.maximum(alloc, rng.integers(0, INF, r)).astype(np.int32)
+        lo = np.full(s, INF, np.int32)
+        hi = rng.integers(0, INF, s).astype(np.int32)
+    elif fill == "conflict":  # one open slot from era 0 pins every row
+        alloc = rng.integers(0, 100, r).astype(np.int32)
+        retire = alloc + rng.integers(0, 100, r).astype(np.int32)
+        lo = np.full(s, INF, np.int32)
+        hi = np.full(s, INF, np.int32)
+        if s:
+            lo[-1], hi[-1] = E0, EMAX
+    else:
+        eras = np.array([E0, 1, EMAX - 1, EMAX], np.int32)
+        alloc = rng.choice(eras, r)
+        retire = np.maximum(alloc, rng.choice(eras, r)).astype(np.int32)
+        lo = rng.choice(np.append(eras, INF), s).astype(np.int32)
+        hi = np.maximum(lo, rng.choice(np.append(eras, INF), s)).astype(
+            np.int32)
+    want = _era_check(dev, alloc, retire, lo, hi)
+    if fill == "empty" or s == 0:
+        assert want.all()
+    elif fill == "conflict":
+        assert not want.any()
+
+
+def test_era_scan_boundary_pairs(dev):
+    """Every (alloc, retire) against every (lo, hi) over the boundary
+    eras, one slot at a time and all slots at once, at both row tiles
+    (the rows repeated past the threshold)."""
+    eras = [E0, 1, EMAX - 1, EMAX]
+    rows = [(a, b) for a in eras for b in eras if a <= b]
+    alloc = np.array([a for a, _ in rows], np.int32)
+    retire = np.array([b for _, b in rows], np.int32)
+    slots = [(l, h) for l in eras + [INF] for h in eras + [INF] if l <= h]
+    lo = np.array([l for l, _ in slots], np.int32)
+    hi = np.array([h for _, h in slots], np.int32)
+    for l, h in slots:
+        _era_check(dev, alloc, retire, np.array([l], np.int32),
+                   np.array([h], np.int32))
+    _era_check(dev, alloc, retire, lo, hi)
+    reps = -(-WIDE_ROWS // len(rows))
+    wide = _era_check(dev, np.tile(alloc, reps), np.tile(retire, reps),
+                      lo[::-1].copy(), hi[::-1].copy())
+    assert len(wide) >= WIDE_ROWS
+
+
+def test_era_scan_pinned_route_threads(dev):
+    """Four threads scan through the pinned round trip at once, each on
+    its own inputs and sizes (the staging buffers grow under them); each
+    gets its own correct mask, and a mask handed back is not overwritten
+    by the next scan."""
+    import threading
+
+    cases = [sample_case(r, s, v, seed=i)
+             for i, (r, s, v) in enumerate([(64, 64, 0.5), (4096, 512, 0.05),
+                                            (20000, 3000, 0.5),
+                                            (300, 5120, 0.2)])]
+    wants = [_can_delete_numpy(*c) for c in cases]
+    errors, kept = [], []
+
+    def scan(i):
+        try:
+            for _ in range(20):
+                got = batched_can_delete(*cases[i], backend="cuda")
+                if not np.array_equal(got, wants[i]):
+                    errors.append(i)
+                kept.append((i, got))
+        except Exception as e:  # pragma: no cover - failure path
+            errors.append(e)
+
+    ts = [threading.Thread(target=scan, args=(i,)) for i in range(4)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+    assert not errors, errors[:3]
+    assert len(kept) == 80
+    for i, got in kept:
+        np.testing.assert_array_equal(got, wants[i])
+
+
+@pytest.mark.parametrize("scheme", ["WFE", "Crystalline", "HE", "EBR",
+                                    "2GEIBR"])
+def test_era_scan_scheme_mirrors(dev, scheme):
+    """Each pool scheme's own reservation mirrors, after a seeded history:
+    the cuda backend's mask equals the numpy backend's per thread and in
+    the fused all-thread scan, and both drains free the same blocks."""
+    from repro_torch.core import make_scheme
+    from repro_torch.core.atomics import AtomicRef, PtrView
+    from repro_torch.core.smr_base import Block
+
+    class Node(Block):
+        __slots__ = ()
+
+    kw = ({"epoch_freq": 2} if scheme in ("EBR", "2GEIBR")
+          else {"era_freq": 2})
+    smrs = [make_scheme(scheme, max_threads=4, cleanup_freq=10 ** 9, **kw)
+            for _ in range(2)]
+    rng = np.random.default_rng(11)
+    script = [(int(rng.integers(4)), int(rng.integers(2)), rng.random())
+              for _ in range(400)]
+    for smr in smrs:
+        tids = [smr.register_thread() for _ in range(4)]
+        cells = [AtomicRef(None) for _ in range(2)]
+        for t, c, op in script:
+            if op < 0.35:
+                smr.start_op(tids[t])
+                cells[c].store(smr.alloc_block(Node, tids[t]))
+            elif op < 0.6 and cells[c].load() is not None:
+                smr.start_op(tids[t])
+                smr.get_protected(PtrView(cells[c]), c, tids[t])
+            elif op < 0.9 and cells[c].load() is not None:
+                blk = cells[c].load()
+                cells[c].store(None)
+                smr.retire(blk, tids[t])
+            else:
+                smr.end_op(tids[t])
+    numpy_smr, cuda_smr = smrs
+    for tid in range(4):
+        np.testing.assert_array_equal(cuda_smr.deletable_mask(tid, "cuda"),
+                                      numpy_smr.deletable_mask(tid, "numpy"))
+    n0 = era_scan.LAUNCHES.n
+    assert (cuda_smr.cleanup_batch_all("cuda")
+            == numpy_smr.cleanup_batch_all("numpy"))
+    assert era_scan.LAUNCHES.n > n0
+    assert cuda_smr.stats() == numpy_smr.stats()

@@ -14,13 +14,14 @@ import zlib
 import numpy as np
 import pytest
 
+from repro.core import SCHEMES as REF_SCHEMES
 from repro.core import make_scheme as ref_make_scheme
 from repro.core.atomics import AtomicRef as RefAtomicRef
 from repro.core.atomics import PtrView as RefPtrView
 from repro.core.smr_base import Block as RefBlock
 from repro_torch.blocks import (BlockPool, BlockTableRef, PoolExhausted,
                                 Scheduler)
-from repro_torch.core import WFE, make_scheme
+from repro_torch.core import SCHEMES, WFE, make_scheme
 from repro_torch.core.atomics import MIRROR_INF, AtomicRef, PtrView
 from repro_torch.core.era_table import batched_can_delete
 from repro_torch.core.smr_base import Block
@@ -93,11 +94,19 @@ def test_unknown_backend_raises():
         batched_can_delete(one, one, one, one, backend="pallas")
 
 
-def test_only_wfe_is_ported():
+def test_scheme_registry_matches_reference():
+    """Every scheme of the reference registry is ported under its name;
+    HP is a scheme of its own but the pool refuses it, as the reference's
+    does (one pointer slot cannot cover a step's snapshot)."""
+    assert list(SCHEMES) == list(REF_SCHEMES)
+    for name, cls in SCHEMES.items():
+        assert cls.__name__ == REF_SCHEMES[name].__name__
     assert isinstance(make_scheme("WFE", max_threads=2), WFE)
-    for name in ("Crystalline", "HE", "HP", "EBR", "2GEIBR", "Leak"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            make_scheme(name, max_threads=2)
+    assert make_scheme("HP", max_threads=2).name == "HP"
+    with pytest.raises(ValueError, match="Hazard Pointers"):
+        BlockPool(4, scheme="HP")
+    with pytest.raises(ValueError, match="unknown SMR scheme"):
+        make_scheme("RCU", max_threads=2)
 
 
 # ------------------------------------------------- WFE against the reference

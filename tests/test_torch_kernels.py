@@ -22,6 +22,7 @@ from repro_torch.kernels import era_scan, ops, paged_attention
 from repro_torch.kernels.ref import (INF_ERA32, era_scan_interval_ref,
                                      paged_attention_chunk_ref,
                                      paged_attention_ref)
+from torch_era_cases import FORMS, sample_case
 
 TOL = 1e-5
 
@@ -177,6 +178,52 @@ def test_plain_era_scan_boundary_eras():
 
 
 # ------------------------------------------------------------- dispatch
+@pytest.mark.parametrize("forms", [("point",), ("interval",), ("open",),
+                                   FORMS], ids="+".join)
+def test_plain_era_scan_on_sample_cases(forms):
+    """chip_smoke's era-scan inputs (``torch_era_cases.sample_case``, cut
+    to a small shape) carry their forms, and the plain version equals NumPy
+    and the Pallas kernel on them."""
+    args = sample_case(300, 200, 0.5, seed=len(forms), forms=forms)
+    alloc, retire, lo, hi = args
+    valid = lo != INF_ERA32
+    assert valid.any() and (~valid).any()
+    assert (alloc <= retire).all()
+    if forms == ("point",):
+        assert (lo[valid] == hi[valid]).all()
+    elif forms == ("interval",):
+        assert (lo[valid] < hi[valid]).all()
+    elif forms == ("open",):
+        assert (hi[valid] == INF_ERA32 - 1).all()
+    got = era_scan_interval_ref(*_t(*args)).numpy()
+    want = _can_delete_numpy(*args)
+    np.testing.assert_array_equal(got, want)
+    assert want.any() and not want.all()
+    np.testing.assert_array_equal(got, np.asarray(pallas_era_scan(
+        *map(jnp.asarray, args), interpret=True)))
+
+
+@pytest.mark.parametrize("r", [0, 1, 31, 32, 33, 4096, 33791, 33792])
+def test_plain_era_scan_at_the_row_tiles(r):
+    """The plain version equals NumPy on rows cut at the kernel's tile
+    edges (32 rows, and 128 from 33792 rows on), over every reservation
+    form."""
+    args = sample_case(r, 64, 0.5, seed=r)
+    np.testing.assert_array_equal(era_scan_interval_ref(*_t(*args)).numpy(),
+                                  _can_delete_numpy(*args))
+
+
+def test_era_scan_round_trip_refuses_the_cpu():
+    """The pinned route runs on CUDA only, and raises before it builds or
+    launches anything."""
+    args = _intervals(2)
+    before = era_scan.LAUNCHES.n
+    with pytest.raises(ValueError, match="CUDA"):
+        era_scan.round_trip(*args, device="cpu")
+    assert era_scan.LAUNCHES.n == before
+    assert len(era_scan.round_trip(*(a[:0] for a in args))) == 0
+
+
 def test_selectors_dispatch_on_device():
     """A CPU tensor goes to the plain version; a device with neither a
     kernel nor a plain version raises."""
