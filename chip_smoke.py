@@ -35,21 +35,57 @@ Phases, each printing its own line; any failure exits non-zero:
    weights with int8 KV pages; then (3c) the 8-request profile-window
    trace once under each pool scheme (WFE, Crystalline, HE, EBR, 2GEIBR),
    bf16 pages: each completes 8/8, drains, launches the era scan and emits
-   the WFE run's greedy tokens.  Then check the model step against the
-   plain path on the CPU at full width and reduced depth.
-4. A WFE forced-slow-path run at reduced depth.
+   the WFE run's greedy tokens.
+4. The sharded engine and the multi-worker runtime on the same weights,
+   with phase 3's engine split over 2 shards of 1024 blocks (each with its
+   own device pool, scratch slot and CUDA stream), every launch count
+   zeroed just before a run and read just after.  A run on one thread
+   holds each paged-attention call's launched variant against
+   ``choose_variant`` of its shapes; a run with several workers holds the
+   launch counts against the tally of those picks.
+   4a one worker: the 32-request trace with bf16 pages, then the 8-request
+      window with int8 pages; each completes at full length, drains, steps
+      both shards, launches split + combine on decode plans and the tile on
+      mixed and prefill plans and the era scan; token match against phase
+      3 printed;
+   output tokens/s on the window for 1 x 1, 1 x 2, 2 x 2 and 4 x 2 workers
+      x shards, then again in reverse order;
+   4b every freed slot poisoned (K = NaN, V = 1e30) on a side stream at the
+      earliest reuse: one worker emits the clean run's tokens exactly, two
+      workers fail no request and sample only from finite logits;
+   4c ``ServeRuntime`` with 2 workers on the 32-request trace and 4 on the
+      window: every worker productive, no failed row; the era scan with the
+      most valid slots printed;
+   4d chaos (``CHAOS_SPEC``) on the 32 requests: 3 crashes, 3 respawns, a
+      requeue, exactly one failed request, the rest complete, the pool
+      drains; recovery p50;
+   the device's idle share of the window with 2 workers (union of device
+      intervals);
+   4e ``Frontend(ServeRuntime(engine, n_workers=2))`` over the full-width
+      2-shard engine in this process: an SSE stream, a disconnect and a
+      DELETE cancellation, then the rolling drain, with the kernels'
+      launches held; then ``python -m repro_torch.serve.frontend
+      --selftest`` and ``python -m repro_torch.launch.serve --requests 8``
+      with ``--shards 2 --workers 2``, each in a process of its own at the
+      reference's smoke size, on CUDA by default.
+5. The model step against the plain path on the CPU at full width and
+   reduced depth, and a WFE forced-slow-path run at reduced depth.
 
-The line before the last is the ``kernels`` JSON line; the last line is
+The line before the last is the ``kernels`` JSON line (each row with
+``launches_runtime``, its launches in 4c's 2-worker run); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -649,17 +685,24 @@ def serve_full_width(dev):
     torch.cuda.synchronize()
     print(f"  stablelm-3b full width: {n_params} params in {cfg.dtype}, "
           f"init {time.perf_counter() - t0:.1f} s", flush=True)
-    launches, toks = serve_trace(cfg, params, dev, kv_dtype=None)
-    launches_q8, toks_q8 = serve_trace(cfg, params, dev, kv_dtype="int8")
-    match = sum(a == b for x, y in zip(toks, toks_q8) for a, b in zip(x, y))
-    total = sum(map(len, toks))
+    bf16 = serve_trace(cfg, params, dev, kv_dtype=None)
+    int8 = serve_trace(cfg, params, dev, kv_dtype="int8")
     # random weights: near-tie argmaxes flip freely, so no floor is set
-    print(f"  int8 vs bf16 pages, greedy token match: {match}/{total} "
-          f"({match / total:.3f})", flush=True)
+    print(f"  int8 vs bf16 pages, greedy token match: "
+          f"{token_match(bf16['tokens'], int8['tokens'])}", flush=True)
     schemes = serve_schemes(cfg, params, dev)
+    runtime = serve_runtime_phase(cfg, params, dev, bf16, int8)
     del params
     torch.cuda.empty_cache()
-    return launches, launches_q8, schemes
+    return bf16["launches"], int8["launches"], schemes, runtime
+
+
+def token_match(want, got) -> str:
+    """'matching/total (share)' of two runs' greedy tokens, request by
+    request."""
+    match = sum(a == b for x, y in zip(want, got) for a, b in zip(x, y))
+    total = sum(map(len, want))
+    return f"{match}/{total} ({match / total:.3f})"
 
 
 #: the pool schemes of the reference (tests/test_serve_runtime.py:25); HP
@@ -740,8 +783,9 @@ def serve_schemes(cfg, params, dev) -> dict:
 def serve_trace(cfg, params, dev, kv_dtype):
     """Serve the 32-request trace with ``kv_dtype`` pages (None: the model's
     bf16) and check the serving invariants and that the path launched its
-    kernels and no other attention kernel.  Returns (launch counts,
-    generated tokens per request)."""
+    kernels and no other attention kernel.  Returns the launch counts, the
+    generated tokens per request, output tokens/s and the profile
+    window's tokens."""
     from repro_torch.kernels import era_scan as es
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.serve import ServeEngine
@@ -754,7 +798,7 @@ def serve_trace(cfg, params, dev, kv_dtype):
     prompts = trace(32, 64, 1024, cfg.vocab_size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    by_kind, wrong, unwrap = variants_by_plan_kind(engine)
+    log = PlanLog(engine, per_call=True)  # one thread: per-call variants
     # the main path's launch counts: zeroed just before, read just after
     pa.LAUNCHES.n = pa.LAUNCHES_Q8.n = es.LAUNCHES.n = 0
     for ctr in pa.VARIANT_LAUNCHES.values():
@@ -768,7 +812,8 @@ def serve_trace(cfg, params, dev, kv_dtype):
                 "paged_attention_chunk_int8": pa.LAUNCHES_Q8.n,
                 "era_scan_interval": es.LAUNCHES.n}
     variants = {k: ctr.n for k, ctr in pa.VARIANT_LAUNCHES.items()}
-    unwrap()
+    log.close()
+    by_kind = log.by_kind()
     attn = ("paged_attention_chunk_int8" if kv_dtype == "int8"
             else "paged_attention_chunk")
     path = {attn, "era_scan_interval"}
@@ -778,14 +823,13 @@ def serve_trace(cfg, params, dev, kv_dtype):
                   for r in reqs)
     # decode steps take the split-KV walk and its combine and nothing
     # else, mixed and prefill steps the tensor-core tile (a chunk of fewer
-    # than 16 columns takes the split walk); no call off its variant, no
-    # CUDA-core walk
-    kinds_ok = (not wrong and set(by_kind) == {"decode", "mixed", "prefill"}
-                and by_kind["decode"]["split"] > 0
-                and by_kind["decode"]["tile"] == 0
-                and by_kind["mixed"]["tile"] > 0
-                and by_kind["prefill"]["tile"] > 0
-                and all(v["cuda_core"] == 0 for v in by_kind.values()))
+    # than 16 columns takes the split walk); each call launched the
+    # variant ``choose_variant`` gives its shapes, and no CUDA-core walk ran
+    kinds_ok = (set(by_kind) == {"decode", "mixed", "prefill"}
+                and set(by_kind["decode"]) == {"split"}
+                and _counts_ok(dict(by_kind=by_kind, launches=variants,
+                                    wrong=log.wrong),
+                               ("decode", "mixed", "prefill")))
     ok = (stats["completed"] == 32 and engine.pool.unreclaimed() == 0
           and engine.pool.free_blocks == n_blocks and toks_ok and kinds_ok
           and all((n > 0) == (k in path) for k, n in launches.items()))
@@ -796,9 +840,9 @@ def serve_trace(cfg, params, dev, kv_dtype):
           f"{engine.pool.unreclaimed()} free_blocks={engine.pool.free_blocks}"
           f"/{n_blocks} launches={launches} steps={steps} "
           f"prompt_tokens={sum(map(len, prompts))} generated={gen_tokens}")
-    print(f"  launches by variant ({label} pages): {variants}; by plan "
-          f"kind: {by_kind}; plans off their expected variant: {wrong}",
-          flush=True)
+    print(f"  launches by variant ({label} pages): {variants}; calls by "
+          f"plan kind and variant: {by_kind}; calls off their variant: "
+          f"{log.wrong[:4]}", flush=True)
     kv_bytes = sum(t.numel() * t.element_size() for t in engine.pools.values())
     print(f"  serve ({label} pages): {dt:.3f} s wall, {gen_tokens / dt:.2f} "
           f"output tokens/s, {dt / steps * 1e3:.2f} ms/step over {steps} "
@@ -807,58 +851,107 @@ def serve_trace(cfg, params, dev, kv_dtype):
           f"{kv_bytes / 2**30:.3f} GiB = "
           f"{kv_bytes / ((n_blocks + 1) * bs):.0f} B/token (scales included) "
           f"on {gpu_name_and_limit()}", flush=True)
-    profile_window(engine, tid, cfg)
+    window = profile_window(engine, tid, cfg)
     generated = [r.generated for r in reqs]
     del engine
     torch.cuda.empty_cache()
-    return dict({k: launches[k] for k in sorted(path)}, by_kind=by_kind,
-                **variants), generated
+    return dict(launches=dict({k: launches[k] for k in sorted(path)},
+                              by_kind=by_kind, **variants),
+                tokens=generated, tok_s=gen_tokens / dt, window=window)
 
 
-def variants_by_plan_kind(engine):
-    """Record which paged-attention variants each wrapper call launched,
-    by the kind of the plan it ran in: ``engine.execute_plan`` (on the
-    instance) notes the kind, and a wrapper around
-    ``paged_attention.paged_attention_chunk`` reads the variant counters
-    around the call and holds what moved against ``choose_variant`` of the
-    shapes the call was given.  Returns ({kind: {variant: launches}},
-    [calls that launched another variant], a function that removes both
-    wrappers), the first two filled as the engine runs."""
-    from repro_torch.kernels import paged_attention as pa
+class PlanLog:
+    """What the workers ran, recorded from any thread: plans by (kind,
+    shard); paged-attention calls by (plan kind, variant), the variant being
+    what ``choose_variant`` gives for the call's shapes (the launch counts
+    are held to these tallies); with ``check_finite``, one flag per step
+    saying whether all its logits were finite.  ``close()`` removes every
+    wrapper.
 
-    by_kind: dict = {}
-    wrong: list = []
-    kind = [None]
-    run_plan, chunk = engine.execute_plan, pa.paged_attention_chunk
+    With ``per_call`` (one thread only: the counters then move for no other
+    call) each call's variant is the one it launched, read from the variant
+    counters around it, and a call that launched anything but
+    ``choose_variant``'s pick for its shapes (split: one split and one
+    combine) goes into ``wrong``."""
 
-    def execute_plan(plan, tid):
-        kind[0] = plan.kind
-        by_kind.setdefault(plan.kind, dict.fromkeys(pa.VARIANT_LAUNCHES, 0))
-        return run_plan(plan, tid)
+    def __init__(self, engine, check_finite: bool = False,
+                 per_call: bool = False):
+        from repro_torch.kernels import paged_attention as pa
+        from repro_torch.serve import engine as engine_mod
 
-    def paged_attention_chunk(q, k_pool, *args, **kwargs):
-        before = {k: ctr.n for k, ctr in pa.VARIANT_LAUNCHES.items()}
-        out = chunk(q, k_pool, *args, **kwargs)
-        used = {k for k, ctr in pa.VARIANT_LAUNCHES.items()
-                if ctr.n > before[k]}
-        counts = by_kind.setdefault(kind[0],
-                                    dict.fromkeys(pa.VARIANT_LAUNCHES, 0))
-        for k in used:
-            counts[k] += pa.VARIANT_LAUNCHES[k].n - before[k]
-        b, c, kh, g, d = q.shape
-        want = pa.choose_variant(q.dtype, k_pool.dtype, c * g, d,
-                                 k_pool.shape[1])
-        if used != ({"split", "combine"} if want == "split" else {want}):
-            wrong.append((kind[0], tuple(q.shape), want, sorted(used)))
+        self._engine, self._pa, self._engine_mod = engine, pa, engine_mod
+        self._lock = threading.Lock()
+        self._kind = threading.local()
+        self.plans: dict = {}
+        self.calls: dict = {}
+        self.wrong: list = []
+        self._flags: list = []
+        self._chunk = pa.paged_attention_chunk
+        self._steps = {name: getattr(engine_mod, name)
+                       for name in ("paged_decode_step", "paged_prefill_chunk")}
+        run_plan = engine.execute_plan
+
+        def execute_plan(plan, tid):
+            self._kind.value = plan.kind
+            self._add(self.plans, (plan.kind, plan.shard))
+            return run_plan(plan, tid)
+
+        def paged_attention_chunk(q, k_pool, *args, **kwargs):
+            b, c, kh, g, d = q.shape
+            want = pa.choose_variant(q.dtype, k_pool.dtype, c * g, d,
+                                     k_pool.shape[1])
+            kind = getattr(self._kind, "value", None)
+            if not per_call:
+                self._add(self.calls, (kind, want))
+                return self._chunk(q, k_pool, *args, **kwargs)
+            before = {k: ctr.n for k, ctr in pa.VARIANT_LAUNCHES.items()}
+            out = self._chunk(q, k_pool, *args, **kwargs)
+            moved = {k: ctr.n - before[k]
+                     for k, ctr in pa.VARIANT_LAUNCHES.items()
+                     if ctr.n != before[k]}
+            expect = ({"split": 1, "combine": 1} if want == "split"
+                      else {want: 1})
+            self._add(self.calls, (kind, want if moved == expect
+                                   else "+".join(sorted(moved)) or "none"))
+            if moved != expect:
+                self.wrong.append((kind, tuple(q.shape), want, moved))
+            return out
+
+        engine.execute_plan = execute_plan
+        pa.paged_attention_chunk = paged_attention_chunk
+        if check_finite:
+            for name, step in self._steps.items():
+                def checked(*args, _step=step):
+                    logits, pools = _step(*args)
+                    flag = torch.isfinite(logits).all()
+                    with self._lock:
+                        self._flags.append(flag)
+                    return logits, pools
+
+                setattr(engine_mod, name, checked)
+
+    def _add(self, table, key) -> None:
+        with self._lock:
+            table[key] = table.get(key, 0) + 1
+
+    def close(self) -> None:
+        del self._engine.execute_plan  # the class's own again
+        self._pa.paged_attention_chunk = self._chunk
+        for name, step in self._steps.items():
+            setattr(self._engine_mod, name, step)
+
+    def all_finite(self) -> bool:
+        """Every logged step's logits finite (read after the run, whose
+        steps have all been waited for)."""
+        return (not self._flags
+                or bool(torch.stack(self._flags).all().item()))
+
+    def by_kind(self) -> dict:
+        out: dict = {}
+        for (kind, variant), n in sorted(self.calls.items(), key=str):
+            counts = out.setdefault(kind, {})
+            counts[variant] = counts.get(variant, 0) + n
         return out
-
-    def unwrap():
-        del engine.execute_plan  # the class's own again
-        pa.paged_attention_chunk = chunk
-
-    engine.execute_plan = execute_plan
-    pa.paged_attention_chunk = paged_attention_chunk
-    return by_kind, wrong, unwrap
 
 
 def _window(engine, tid, cfg, salt):
@@ -889,10 +982,11 @@ def profile_window(engine, tid, cfg):
     """Where the time goes: one 8-request window timed by step kind without
     the profiler, then the same lengths (other tokens) under torch.profiler
     for the device time by kernel; the device's idle share is 1 - device
-    time / the unprofiled window's wall time."""
+    time / the unprofiled window's wall time.  Returns the unprofiled
+    window's tokens."""
     from torch.profiler import ProfilerActivity, profile
 
-    wall, by_kind, _ = _window(engine, tid, cfg, salt=1)
+    wall, by_kind, reqs = _window(engine, tid, cfg, salt=1)
     kinds = ", ".join(f"{k}: {len(v)} steps, mean {np.mean(v) * 1e3:.2f} ms"
                       for k, v in sorted(by_kind.items()))
     print(f"  window: {wall:.3f} s wall; {kinds}", flush=True)
@@ -928,7 +1022,7 @@ def profile_window(engine, tid, cfg):
     busy = sum(groups.values()) / 1e6
     if busy == 0:
         print("  profile: device time not measured (no CUDA events)")
-        return
+        return [r.generated for r in reqs]
     shares = ", ".join(f"{k} {v / 1e6:.3f} s ({v / 1e6 / wall:.1%})"
                        for k, v in groups.items())
     print(f"  device time by kind (profiled window) against the unprofiled "
@@ -937,6 +1031,523 @@ def profile_window(engine, tid, cfg):
     top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
     print("  top device kernels: " + "; ".join(
         f"{k} {v / 1e3:.1f} ms" for k, v in top), flush=True)
+    return [r.generated for r in reqs]
+
+
+# ------------------------------------------------------------ phase 4: runtime
+#: phase 4's engine is phase 3's (WFE, use_kernel=True, 2048 blocks of 16
+#: tokens, max_batch 8, chunk 256) split over two shards of 1024 blocks,
+#: each with its own device pool, scratch slot and CUDA stream
+SHARDS = 2
+#: 4d: one crash at each crash point and one poisoned row (serve/faults.py)
+CHAOS_SPEC = ("crash_at=before_tick:3|after_reservation:7|after_dispatch:11,"
+              "poison_at=5")
+
+
+def poison_on_free(engine, dev) -> list:
+    """Wrap each shard pool's ``_on_free`` (taken by every block at its
+    allocation): before a freed slot goes back on the free stack, its pages
+    in every layer get K = NaN and V = 1e30, written on a side stream that
+    is synchronized before the wrapper returns: the earliest the slot can be
+    reused.  The side stream is not ordered after the shard's stream, so a
+    step still reading the page would read the poison.  Returns a
+    one-element list counting the poisoned slots."""
+    side = torch.cuda.Stream(device=dev)
+    lock = threading.Lock()
+    count = [0]
+    for s, pool in enumerate(engine.pool.shards):
+        def on_free(index, _s=s, _free=pool._on_free, _base=pool.first_block):
+            pages = engine._shard_pools[_s]
+            local = index - _base  # shard-local slot id
+            with torch.cuda.stream(side):
+                pages["k"][:, local] = float("nan")
+                pages["v"][:, local] = 1e30
+            side.synchronize()
+            with lock:
+                count[0] += 1
+            _free(index)
+
+        pool._on_free = on_free
+    return count
+
+
+def _device_busy(prof) -> tuple:
+    """(sum of device kernel and copy times, union of their intervals), in
+    seconds, from a profiler trace: the union counts a moment at which two
+    streams both run once."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type.name == "CUDA")
+    total = sum(b - a for a, b in spans)
+    union, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    return total / 1e6, union / 1e6
+
+
+def sharded_engine(cfg, params, dev, workers, *, shards=SHARDS,
+                   kv_dtype=None, faults=False):
+    """The phase 4 engine for ``workers`` workers, with the CLI's
+    ``max_threads`` headroom (respawns take fresh tids when faults are
+    armed)."""
+    from repro_torch.serve import ServeEngine
+
+    return ServeEngine(cfg, params, n_blocks=2048, block_size=16,
+                       max_batch=8, chunk_size=256, scheme="WFE",
+                       use_kernel=True, kv_dtype=kv_dtype, n_shards=shards,
+                       max_threads=max(16 if faults else 8, workers + 2),
+                       max_inflight=max(4, workers), device=dev)
+
+
+def serve_sharded(cfg, params, dev, prompts, new, *, workers,
+                  shards=SHARDS, kv_dtype=None, spec=None, poison=False,
+                  check_finite=False, profile=False, scans=None) -> dict:
+    """Serve ``prompts`` (``new`` tokens each) on the phase 4 engine (on
+    ``shards`` shards) with ``workers`` workers: ``engine.run`` for one
+    worker without faults, else ``ServeRuntime``.  Launch counts are zeroed just before the run and read
+    just after.  ``spec`` arms a ``FaultInjector``; ``poison`` wraps the
+    frees (``poison_on_free``); ``profile`` runs under torch.profiler;
+    ``scans`` (a list) is cleared first and collects the run's era scans.
+    Returns what the run produced (a copy of ``scans`` included); the
+    engine is freed."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    from repro_torch.kernels import era_scan as es
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve import FaultInjector, FaultSpec, ServeRuntime
+
+    engine = sharded_engine(cfg, params, dev, workers, shards=shards,
+                            kv_dtype=kv_dtype, faults=spec is not None)
+    injector = None
+    if spec is not None:
+        injector = FaultInjector(FaultSpec.parse(spec))
+        engine.set_fault_injector(injector)
+    poisoned = poison_on_free(engine, dev) if poison else [0]
+    single = workers == 1 and spec is None  # engine.run on this thread
+    log = PlanLog(engine, check_finite, per_call=single)
+    reqs = [engine.submit(p, new) for p in prompts]
+    counters = [pa.LAUNCHES, pa.LAUNCHES_Q8, es.LAUNCHES,
+                *pa.VARIANT_LAUNCHES.values()]
+    torch.cuda.synchronize()
+    for ctr in counters:
+        ctr.n = 0
+    if scans is not None:
+        scans.clear()
+    prof = (profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            if profile else contextlib.nullcontext())
+    runtime = None if single else ServeRuntime(engine, n_workers=workers)
+    t0 = time.perf_counter()
+    with prof:
+        if runtime is None:
+            stats = engine.run(engine.pool.register_thread())
+            stats.update(unreclaimed=engine.pool.unreclaimed(),
+                         worker_steps=[stats["steps"]])
+        else:
+            stats = runtime.serve()
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"paged_attention_chunk": pa.LAUNCHES.n,
+                "paged_attention_chunk_int8": pa.LAUNCHES_Q8.n,
+                "era_scan_interval": es.LAUNCHES.n,
+                **{k: ctr.n for k, ctr in pa.VARIANT_LAUNCHES.items()}}
+    log.close()
+    out = dict(stats=stats, dt=dt, tokens=[r.generated for r in reqs],
+               states=[r.state for r in reqs], launches=launches,
+               plans=log.plans, by_kind=log.by_kind(), wrong=log.wrong,
+               finite=log.all_finite(), free_blocks=engine.pool.free_blocks,
+               scans=list(scans or ()),
+               poisoned=poisoned[0],
+               generated=sum(len(r.generated) for r in reqs))
+    if runtime is not None:
+        out.update(respawns=runtime.n_respawns,
+                   recovery=list(runtime.recovery_latencies))
+    if injector is not None:
+        out["crashes"] = injector.n_crashes
+    if profile:
+        out["busy_sum"], out["busy_union"] = _device_busy(prof)
+    del engine, runtime, log
+    torch.cuda.empty_cache()
+    return out
+
+
+def _counts_ok(run, expect_kinds) -> bool:
+    """The launch counts agree with the logged calls (a split launch is
+    one split and one combine), no CUDA-core walk ran, no call logged per
+    call launched off its variant, and each plan kind in ``expect_kinds``
+    called its variant: decode the split-KV walk, mixed and prefill the
+    tile."""
+    by_kind, n = run["by_kind"], run["launches"]
+    split = sum(v.get("split", 0) for v in by_kind.values())
+    tile = sum(v.get("tile", 0) for v in by_kind.values())
+    want = {"decode": "split", "mixed": "tile", "prefill": "tile"}
+    return (not run["wrong"] and n["split"] == n["combine"] == split
+            and n["tile"] == tile and n["cuda_core"] == 0
+            and all(by_kind.get(k, {}).get(want[k], 0) > 0
+                    for k in expect_kinds))
+
+
+def _both_shards(run) -> bool:
+    return {s for _, s in run["plans"]} == set(range(SHARDS))
+
+
+def _full(run, n_req, new, failed=0) -> bool:
+    """``n_req`` requests: all but ``failed`` complete at full length, the
+    pool drains to zero unreclaimed with every block free."""
+    st = run["stats"]
+    done = [t for t, state in zip(run["tokens"], run["states"])
+            if state == "done"]
+    return (st["completed"] == n_req - failed == len(done)
+            and st.get("failed", 0) == failed
+            and all(len(t) == new for t in done)
+            and st["unreclaimed"] == 0 and run["free_blocks"] == 2048)
+
+
+def _summary(run) -> str:
+    st = run["stats"]
+    return (f"completed={st['completed']} failed={st.get('failed', 0)} "
+            f"unreclaimed={st['unreclaimed']} free_blocks="
+            f"{run['free_blocks']}/2048 steps={st['steps']} worker_steps="
+            f"{st['worker_steps']} plans by (kind, shard)="
+            f"{dict(sorted(run['plans'].items()))} launches={run['launches']}")
+
+
+def guarded(name: str, fn, *args, **kwargs):
+    """Run one sub-phase; an exception fails it (printed) and returns None,
+    so the later sub-phases still run and report."""
+    try:
+        return fn(*args, **kwargs)
+    except Exception:  # a failed sub-phase must not hide the others
+        import traceback
+
+        traceback.print_exc()
+        phase(name, False, "raised")
+        return None
+
+
+def serve_runtime_phase(cfg, params, dev, bf16, int8) -> dict:
+    """Phase 4: the sharded engine and the multi-worker runtime on the card,
+    on phase 3's full-width weights.  ``bf16``/``int8`` are phase 3's
+    one-shard runs (tokens, tokens/s, window tokens).  Returns the kernels'
+    launches in the 2-worker runtime run (4c) and the throughput table."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import INF_ERA32
+
+    prompts = trace(32, 64, 1024, cfg.vocab_size)
+    window = trace(8, 256, 768, cfg.vocab_size, salt=1)
+    scans: list = []
+    scan = ops.can_delete_blocks_interval
+
+    def recorded(alloc, retire, lo, hi, **kwargs):
+        if len(alloc):  # an empty scan launches nothing
+            scans.append((len(alloc), int(np.count_nonzero(
+                np.asarray(lo) != INF_ERA32))))
+        return scan(alloc, retire, lo, hi, **kwargs)
+
+    ops.can_delete_blocks_interval = recorded
+    out: dict = {}
+    t_phase = time.perf_counter()
+    try:
+        run = lambda k, **kw: serve_sharded(  # noqa: E731
+            cfg, params, dev, prompts, 64, workers=k, scans=scans, **kw)
+        win = lambda k, **kw: serve_sharded(  # noqa: E731
+            cfg, params, dev, window, 16, workers=k, scans=scans, **kw)
+
+        # 4a: one worker, two shards, bf16 then int8 pages
+        a = guarded("4a", run, 1)
+        if a is not None:
+            phase("4a serve stablelm-3b full width, 2 shards, 1 worker, bf16 "
+                  "pages, 32 requests",
+                  _full(a, 32, 64) and _both_shards(a)
+                  and _counts_ok(a, ("decode", "mixed", "prefill"))
+                  and a["launches"]["era_scan_interval"] > 0
+                  and a["launches"]["paged_attention_chunk_int8"] == 0,
+                  _summary(a))
+            print(f"  4a launches by plan kind: {a['by_kind']}; greedy token "
+                  f"match against phase 3's one-shard run: "
+                  f"{token_match(bf16['tokens'], a['tokens'])}", flush=True)
+        a8 = guarded("4a int8", win, 1, kv_dtype="int8")
+        if a8 is not None:
+            phase("4a serve stablelm-3b full width, 2 shards, 1 worker, int8 "
+                  "pages, 8 requests",
+                  _full(a8, 8, 16) and _both_shards(a8)
+                  and _counts_ok(a8, ("decode",))
+                  and a8["launches"]["paged_attention_chunk"] == 0
+                  and a8["launches"]["paged_attention_chunk_int8"] > 0
+                  and a8["launches"]["era_scan_interval"] > 0, _summary(a8))
+            print(f"  4a int8 greedy token match against phase 3b's one-shard"
+                  f" window: {token_match(int8['window'], a8['tokens'])}",
+                  flush=True)
+
+        # throughput on the window, workers x shards, then in reverse order
+        points = ((1, 1), (1, SHARDS), (2, SHARDS), (4, SHARDS))
+        rates: dict = {}
+        first: dict = {}
+        for k, shards in points + points[::-1]:
+            name = f"throughput K={k} x {shards} shards, 8 requests"
+            r = guarded(name, win, k, shards=shards)
+            if r is None:
+                continue
+            ok = _full(r, 8, 16) and _counts_ok(r, ("decode",))
+            phase(name, ok, _summary(r))
+            if ok:
+                rates.setdefault((k, shards), []).append(
+                    r["generated"] / r["dt"])
+                first.setdefault((k, shards), r)
+        print("  output tokens/s (host clock, the 8-request window, 16 new "
+              "tokens each), workers x shards, first pass then the reverse "
+              "pass: " + "; ".join(
+                  f"{k} x {s}: " + ", ".join(f"{v:.2f}" for v in vs)
+                  for (k, s), vs in sorted(rates.items()))
+              + f" on {gpu_name_and_limit()}", flush=True)
+        out["rates"] = rates
+
+        # 4b: poison every freed page at the earliest reuse; the clean run
+        # is the throughput pass's first 1 x 2 (the same single-threaded
+        # plans)
+        clean = first.get((1, SHARDS))
+        p1 = guarded("4b poison", win, 1, poison=True, check_finite=True)
+        if p1 is not None:
+            same = clean is not None and p1["tokens"] == clean["tokens"]
+            phase("4b poison on free, 1 worker, 2 shards: the clean run's "
+                  "tokens", _full(p1, 8, 16) and p1["finite"]
+                  and p1["poisoned"] > 0 and same,
+                  f"{p1['poisoned']} slots poisoned, tokens == clean run's "
+                  f"{same}, finite logits {p1['finite']}")
+        p2 = guarded("4b poison 2 workers", win, 2, poison=True,
+                     check_finite=True)
+        if p2 is not None:
+            phase("4b poison on free, 2 workers, 2 shards",
+                  _full(p2, 8, 16) and p2["finite"] and p2["poisoned"] > 0,
+                  f"{p2['poisoned']} slots poisoned, finite logits "
+                  f"{p2['finite']}; " + _summary(p2))
+
+        # 4c: the runtime, 2 workers on the 32 requests, 4 on the window
+        # (the throughput pass's first 4 x 2 run)
+        for k, n_req, new, kinds in ((2, 32, 64, ("decode", "mixed")),
+                                     (4, 8, 16, ("decode",))):
+            c = guarded(f"4c K={k}", run, k) if k == 2 \
+                else first.get((4, SHARDS))
+            if c is None:
+                continue
+            seen = c["scans"]
+            most = max(seen, key=lambda x: (x[1], x[0]), default=(0, 0))
+            phase(f"4c ServeRuntime K={k}, 2 shards, bf16 pages, {n_req} "
+                  "requests",
+                  _full(c, n_req, new) and _both_shards(c)
+                  and all(n > 0 for n in c["stats"]["worker_steps"])
+                  and _counts_ok(c, kinds)
+                  and c["launches"]["era_scan_interval"] == len(seen) > 0,
+                  _summary(c))
+            print(f"  4c K={k}: {len(seen)} era scans, the most valid slots "
+                  f"{most[1]} (x {most[0]} retired rows), the most rows "
+                  f"{max(seen, default=(0, 0))[0]}; launches by plan kind: "
+                  f"{c['by_kind']}", flush=True)
+            if k == 2:
+                out["launches_runtime"] = dict(c["launches"],
+                                               by_kind=c["by_kind"])
+                out["largest_scan"] = list(most)
+                print("  output tokens/s (host clock, 32 requests x 64 "
+                      f"tokens, one run each): 1 x 1 {bf16['tok_s']:.2f} "
+                      "(phase 3), 1 x 2 "
+                      + (f"{a['generated'] / a['dt']:.2f}" if a else "none")
+                      + f" (4a), 2 x 2 {c['generated'] / c['dt']:.2f} (4c) "
+                      f"on {gpu_name_and_limit()}", flush=True)
+
+        # 4d: chaos
+        d = guarded("4d", run, 2, spec=CHAOS_SPEC)
+        if d is not None:
+            lat = sorted(d["recovery"])
+            p50 = f"{lat[len(lat) // 2] * 1e3:.2f} ms" if lat else "none"
+            phase("4d chaos, K=2, 2 shards: " + CHAOS_SPEC,
+                  _full(d, 32, 64, failed=1) and d["crashes"] == 3
+                  and d["respawns"] == 3
+                  and d["stats"]["crash_requeues"] >= 1,
+                  f"crashes={d['crashes']} respawns={d['respawns']} "
+                  f"crash_requeues={d['stats']['crash_requeues']} "
+                  f"recovery p50 {p50} over {len(lat)}; " + _summary(d))
+
+        # idle share of the window with 2 workers on 2 shards, against the
+        # throughput pass's first unprofiled 2 x 2 run
+        two = first.get((2, SHARDS))
+        if two is not None:
+            guarded("idle K=2", runtime_idle, cfg, params, dev, window, 2,
+                    two["dt"])
+
+        # 4e: the front end over this engine, in this process
+        guarded("4e front end full width", frontend_full_width, cfg, params,
+                dev, window)
+    finally:
+        ops.can_delete_blocks_interval = scan
+    t_sub = time.perf_counter()
+    # 4e: the front end's selftest and the CLI, each in a process of its own
+    guarded("4e", entry_points)
+    print(f"  phase 4: {t_sub - t_phase:.1f} s in this process, "
+          f"{time.perf_counter() - t_sub:.1f} s for the subprocesses",
+          flush=True)
+    return out
+
+
+def runtime_idle(cfg, params, dev, window, workers, wall) -> None:
+    """The device's idle share with ``workers`` workers on 2 shards: the
+    8-request window under torch.profiler against ``wall``, the seconds of
+    the same run unprofiled; busy is the union of the device's kernel and
+    copy intervals (two streams may run at once; their sum is printed
+    too)."""
+    prof = serve_sharded(cfg, params, dev, window, 16, workers=workers,
+                         profile=True)
+    busy_sum, busy = prof["busy_sum"], prof["busy_union"]
+    if busy == 0:
+        print(f"  idle K={workers}: device time not measured (no CUDA "
+              "events)", flush=True)
+        return
+    print(f"  idle K={workers}, 2 shards, 8-request window: "
+          f"{wall:.3f} s wall unprofiled ({prof['dt']:.3f} s "
+          f"profiled), device busy (union of intervals) {busy:.3f} s = "
+          f"{busy / wall:.1%}, idle {1 - busy / wall:.1%}; sum "
+          f"of device times {busy_sum:.3f} s on {gpu_name_and_limit()}",
+          flush=True)
+
+
+def frontend_full_width(cfg, params, dev, window) -> None:
+    """4e at full width: ``Frontend(ServeRuntime(engine, n_workers=2))`` in
+    this process over the phase 4 engine (bf16 pages, 2 shards), its
+    workers persistent.  Over HTTP: one request streamed to its end, one
+    cancelled by disconnecting after two tokens, one DELETE-cancelled after
+    its first; then the rolling drain.  Launch counts are zeroed just
+    before the front end starts and read after the drain: decode plans
+    launch split + combine, the prompts' chunks the tile, no CUDA-core
+    walk, and the era scan runs."""
+    import asyncio
+
+    from repro_torch.kernels import era_scan as es
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve import Frontend, ServeRuntime
+    from repro_torch.serve.frontend import _http_json, _post_generate, _read_sse
+
+    engine = sharded_engine(cfg, params, dev, 2)
+    log = PlanLog(engine)
+    frontend = Frontend(ServeRuntime(engine, n_workers=2,
+                                     max_steps_per_worker=1_000_000), port=0)
+    counters = [pa.LAUNCHES, pa.LAUNCHES_Q8, es.LAUNCHES,
+                *pa.VARIANT_LAUNCHES.values()]
+    torch.cuda.synchronize()
+    for ctr in counters:
+        ctr.n = 0
+
+    async def drive() -> dict:
+        port = await frontend.start()
+        got: dict = {}
+        # one request streamed to its end
+        status, reader, writer = await _post_generate(
+            port, {"prompt": window[0], "max_new_tokens": 16})
+        events = await _read_sse(reader)
+        writer.close()
+        toks = [d for e, d in events if e == "token"]
+        done = [d for e, d in events if e == "done"]
+        got["streamed"] = ("200" in status and len(toks) == 16
+                           and [t["index"] for t in toks] == list(range(16))
+                           and all(0 <= t["token"] < cfg.vocab_size
+                                   for t in toks)
+                           and bool(done) and done[0]["state"] == "done")
+        # cancelled by disconnecting after two tokens
+        status, reader, writer = await _post_generate(
+            port, {"prompt": window[1], "max_new_tokens": 64})
+        events = await _read_sse(reader, until_tokens=2)
+        writer.close()
+        got["disconnected"] = ("200" in status and
+                               sum(e == "token" for e, _ in events) == 2)
+        # DELETE-cancelled after its first token
+        status, reader, writer = await _post_generate(
+            port, {"prompt": window[2], "max_new_tokens": 64})
+        events = await _read_sse(reader, until_tokens=1)
+        rid = next(d["id"] for e, d in events if e == "start")
+        del_status, body = await _http_json(port, "DELETE",
+                                            f"/v1/requests/{rid}")
+        tail = await _read_sse(reader)
+        writer.close()
+        done = [d for e, d in tail if e == "done"]
+        got["deleted"] = ("200" in status and "200" in del_status
+                          and body["cancelled"] and bool(done)
+                          and done[0]["state"] == "cancelled")
+        got["cancel_latency_ms"] = done[0]["cancel_latency_ms"] if done \
+            else None
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 60.0:  # quiescence, then the drain
+            _, health = await _http_json(port, "GET", "/healthz")
+            if health["pending"] == 0 and health["active"] == 0:
+                break
+            await asyncio.sleep(0.05)
+        got["stats"] = await frontend.shutdown(deadline_s=30.0)
+        return got
+
+    try:
+        got = asyncio.run(drive())
+    finally:
+        log.close()
+        if frontend.runtime.running:  # drive() failed before its drain
+            frontend.runtime.drain(deadline_s=10.0)
+    torch.cuda.synchronize()
+    n = {"era_scan_interval": es.LAUNCHES.n,
+         "paged_attention_chunk_int8": pa.LAUNCHES_Q8.n,
+         **{k: ctr.n for k, ctr in pa.VARIANT_LAUNCHES.items()}}
+    st = got["stats"]
+    ok = (got["streamed"] and got["disconnected"] and got["deleted"]
+          and st["unreclaimed"] == 0 and st["cancelled"] >= 2
+          and st["completed"] >= 1 and engine.pool.free_blocks == 2048
+          and n["split"] == n["combine"] > 0 and n["tile"] > 0
+          and n["cuda_core"] == 0 and n["paged_attention_chunk_int8"] == 0
+          and n["era_scan_interval"] > 0
+          and _counts_ok(dict(by_kind=log.by_kind(), launches=n,
+                              wrong=log.wrong), ("decode",)))
+    phase("4e front end over full-width stablelm-3b, 2 shards, 2 workers: "
+          "stream, disconnect, DELETE, rolling drain", ok,
+          f"streamed {got['streamed']} disconnected {got['disconnected']} "
+          f"deleted {got['deleted']} (cancel latency "
+          f"{got['cancel_latency_ms']} ms) completed={st['completed']} "
+          f"cancelled={st['cancelled']} unreclaimed={st['unreclaimed']} "
+          f"free_blocks={engine.pool.free_blocks}/2048 worker_steps="
+          f"{st['worker_steps']} launches={n} by plan kind={log.by_kind()}")
+    del engine, frontend
+    torch.cuda.empty_cache()
+
+
+def entry_points() -> None:
+    """4e: the front end's selftest and the serving CLI at the reference's
+    smoke size, each in a process of its own, on the default device
+    (CUDA), started together."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmds = {
+        "frontend --selftest": [sys.executable, "-m",
+                                "repro_torch.serve.frontend", "--selftest",
+                                "--shards", "2", "--workers", "2"],
+        "launch.serve": [sys.executable, "-m", "repro_torch.launch.serve",
+                         "--shards", "2", "--workers", "2", "--requests",
+                         "8"],
+    }
+    procs = {name: subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT)
+             for name, cmd in cmds.items()}
+    t0 = time.perf_counter()
+    for name, proc in procs.items():
+        try:
+            log, _ = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+        want = ("selftest: PASS" if name.startswith("frontend")
+                else "completed=8")
+        ok = proc.returncode == 0 and want in log
+        tail = " | ".join(line for line in log.splitlines()
+                          if want.split(":")[0].split("=")[0] in line
+                          or "drained" in line)[-400:]
+        phase(f"4e {name} --shards 2 --workers 2 on CUDA (smoke size)", ok,
+              f"rc={proc.returncode} after {time.perf_counter() - t0:.1f} s: "
+              f"{tail}")
+        if not ok:
+            print(log[-3000:], flush=True)
 
 
 def _leaves(tree):
@@ -1057,7 +1668,7 @@ def main() -> int:
                 "GQA")
     torch.cuda.empty_cache()
 
-    launches, launches_q8, schemes = serve_full_width(dev)
+    launches, launches_q8, schemes, runtime = serve_full_width(dev)
     step_matches_cpu(dev)
     forced_slow_path(dev)
 
@@ -1074,7 +1685,7 @@ def main() -> int:
         ("paged_attention_chunk", 148, "mixed B 9 C 256, bf16 q",
          launches["tile"], attn[(torch.bfloat16, 256)]),
         ("paged_attention_chunk", 148, "engine mixed step, bf16 q",
-         launches["by_kind"]["mixed"]["tile"],
+         launches["by_kind"].get("mixed", {}).get("tile", 0),
          attn[(torch.bfloat16, "engine")]),
         ("paged_attention_chunk", 148, "decode B 8 C 1, f32 q", 0,
          attn[(torch.float32, 1)]),
@@ -1085,7 +1696,8 @@ def main() -> int:
         ("paged_attention_chunk_int8", 129, "mixed B 9 C 256, bf16 q",
          launches_q8["tile"], attn[("int8", 256)]),
         ("paged_attention_chunk_int8", 129, "engine mixed step, bf16 q",
-         launches_q8["by_kind"]["mixed"]["tile"], attn[("int8", "engine")]),
+         launches_q8["by_kind"].get("mixed", {}).get("tile", 0),
+         attn[("int8", "engine")]),
     ]
     kernels = [dict(name=name, route="cuda", source=paged,
                     replaces=f"src/repro/kernels/paged_attention.py:{line}",
@@ -1114,6 +1726,25 @@ def main() -> int:
         dict(name="flash_attention", case="starcoder2-3b prefill",
              **flash_src, **flash_gqa),
     ]
+    # ``launches_runtime``: each row's launches in phase 4c's 2-worker run
+    # on 2 shards (bf16 pages), by the row's variant and, for the engine's
+    # mixed step, by plan kind
+    rt = runtime.get("launches_runtime")
+    for row in kernels:
+        if rt is None:
+            n = None
+        elif row["name"] == "era_scan_interval":
+            n = rt["era_scan_interval"]
+        elif row["name"] != "paged_attention_chunk" or "f32" in row["case"]:
+            n = 0  # int8 pages, f32 queries and flash are off this run
+        elif row["case"].startswith("engine"):
+            n = rt["by_kind"].get("mixed", {}).get("tile", 0)
+        else:
+            n = rt[row["variant"]]
+        row["launches_runtime"] = n
+        if row["name"] == "era_scan_interval":
+            row["largest_scan_runtime"] = runtime.get("largest_scan")
+    kernels[0]["launches_runtime_combine"] = rt and rt["combine"]
     if FAILED:
         print(f"chip_smoke: FAILED phases: {FAILED}", file=sys.stderr)
         return 1

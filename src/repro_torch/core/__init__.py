@@ -22,6 +22,7 @@ from .atomics import (
     TriplePtrView,
 )
 from .crystalline import Crystalline
+from .distributed_eras import DistributedEraClock, ShardedEraDomain
 from .ebr import EBR
 from .era_table import (BACKENDS, ArrayRetireList, EraTable,
                         batched_can_delete)
@@ -70,6 +71,8 @@ __all__ = [
     "SMRScheme",
     "WFE",
     "Crystalline",
+    "DistributedEraClock",
+    "ShardedEraDomain",
     "HazardEras",
     "HazardPointers",
     "EBR",

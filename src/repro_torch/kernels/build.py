@@ -51,13 +51,20 @@ SIGNATURES = {
 
 
 class Counter:
-    """Launch count of one kernel: a plain integer, bumped by its wrapper
-    once per launch and nowhere else."""
+    """Launch count of one kernel: an integer ``n``, bumped by its wrapper
+    once per launch (``bump``) and nowhere else.  ``bump`` takes a lock:
+    serving workers launch from several threads, and a bare ``+=`` there
+    can lose an update."""
 
-    __slots__ = ("n",)
+    __slots__ = ("n", "_lock")
 
     def __init__(self) -> None:
         self.n = 0
+        self._lock = threading.Lock()
+
+    def bump(self) -> None:
+        with self._lock:
+            self.n += 1
 
 
 def _nvcc() -> str:

@@ -55,7 +55,7 @@ def era_scan_interval(alloc_eras: torch.Tensor, retire_eras: torch.Tensor,
         alloc_eras.data_ptr(), retire_eras.data_ptr(), res_lo.data_ptr(),
         res_hi.data_ptr(), out.data_ptr(), r, s, stream)
     build.check(err, "era_scan_interval")
-    LAUNCHES.n += 1
+    LAUNCHES.bump()
     return out
 
 
@@ -123,6 +123,6 @@ def round_trip(alloc: np.ndarray, retire: np.ndarray, lo: np.ndarray,
             st.host_in.data_ptr(), st.dev_in.data_ptr(),
             st.dev_mask.data_ptr(), st.host_mask.data_ptr(), r, s, stream)
         build.check(err, "era_scan_round_trip")
-        LAUNCHES.n += 1
+        LAUNCHES.bump()
         return st.host_mask_np[:r].astype(bool)
 

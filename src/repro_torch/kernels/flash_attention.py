@@ -85,6 +85,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = lib.flash_attention(_DTYPES[q.dtype], *ptrs, b, t, h, kh, d,
                                   int(causal), scale, stream)
     build.check(err, f"flash_attention ({variant})")
-    VARIANT_LAUNCHES[variant].n += 1
-    LAUNCHES.n += 1
+    VARIANT_LAUNCHES[variant].bump()
+    LAUNCHES.bump()
     return out

@@ -196,8 +196,8 @@ def paged_attention_chunk(q: torch.Tensor, k_pool: torch.Tensor,
         launched = ("cuda_core",)
     build.check(err, f"paged_attention_chunk ({variant})")
     for name in launched:
-        VARIANT_LAUNCHES[name].n += 1
-    (LAUNCHES_Q8 if quantized else LAUNCHES).n += 1
+        VARIANT_LAUNCHES[name].bump()
+    (LAUNCHES_Q8 if quantized else LAUNCHES).bump()
     return out
 
 

@@ -586,3 +586,147 @@ def test_era_scan_scheme_mirrors(dev, scheme):
             == numpy_smr.cleanup_batch_all("numpy"))
     assert era_scan.LAUNCHES.n > n0
     assert cuda_smr.stats() == numpy_smr.stats()
+
+
+# ------------------------------------------------- sharded engine, streams
+SHARD_PROMPTS = [[5, 9, 2], [11, 3, 8, 1], [7], [2, 4], [9, 9, 1], [13],
+                 [3, 1, 4, 1, 5, 9, 2, 6], [8, 8]]
+
+
+def _sharded_engine(dev, **kw):
+    """The reduced stablelm-3b config on 2 shards of the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_smoke_config("stablelm-3b")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    kw = {**dict(n_blocks=32, block_size=4, max_batch=4, chunk_size=4,
+                 n_shards=2, era_freq=1, cleanup_freq=1), **kw}
+    return ServeEngine(cfg, params, device=dev, **kw)
+
+
+def test_each_shard_steps_on_its_own_stream(dev, monkeypatch):
+    """Every step of shard s runs on shard s's stream, which is neither the
+    other shard's nor the default stream, and both shards' pools take
+    writes; the run completes and drains."""
+    from repro_torch.serve import engine as engine_mod
+
+    engine = _sharded_engine(dev)
+    seen = []
+    for name in ("paged_decode_step", "paged_prefill_chunk"):
+        def wrapped(cfg, params, pools, *args, _real=getattr(engine_mod,
+                                                             name)):
+            seen.append((pools["k"].data_ptr(),
+                         torch.cuda.current_stream(dev).cuda_stream))
+            return _real(cfg, params, pools, *args)
+
+        monkeypatch.setattr(engine_mod, name, wrapped)
+    tid = engine.pool.register_thread()
+    reqs = [engine.submit(p, 5) for p in SHARD_PROMPTS]
+    stats = engine.run(tid)
+    assert stats["completed"] == len(reqs)
+    assert engine.pool.unreclaimed() == 0 and engine.pool.free_blocks == 32
+    shard_of = {p["k"].data_ptr(): s
+                for s, p in enumerate(engine._shard_pools)}
+    streams = {}
+    for ptr, stream in seen:
+        streams.setdefault(shard_of[ptr], set()).add(stream)
+    own = [s.cuda_stream for s in engine._streams]
+    assert streams == {0: {own[0]}, 1: {own[1]}}
+    assert own[0] != own[1]
+    assert torch.cuda.default_stream(dev).cuda_stream not in own
+    for pools in engine._shard_pools:
+        assert pools["k"].abs().sum().item() > 0, "a shard took no write"
+
+
+def test_exception_after_launch_leaves_stream_idle(dev, monkeypatch):
+    """A decode step that raises after its launches (with more device work
+    queued behind them) has synchronized its shard's stream by the time
+    the exception reaches the caller: a reaped reservation never races a
+    queued read."""
+    from repro_torch.serve import engine as engine_mod
+
+    engine = _sharded_engine(dev)
+    # the queued work is long enough to be still running when queried
+    probe = engine._streams[0]
+    with torch.cuda.stream(probe):
+        torch.cuda._sleep(200_000_000)
+    assert not probe.query(), "the sleep ended before the query"
+    probe.synchronize()
+    real = engine_mod.paged_decode_step
+
+    def failing(*args):
+        out = real(*args)
+        torch.cuda._sleep(200_000_000)
+        raise RuntimeError("device fault after the launches")
+
+    monkeypatch.setattr(engine_mod, "paged_decode_step", failing)
+    tid = engine.pool.register_thread()
+    for p in SHARD_PROMPTS:
+        engine.submit(p, 5)
+    with pytest.raises(RuntimeError, match="after the launches"):
+        for _ in range(1000):
+            engine.step(tid)
+    shard = engine.take_orphaned_plan(tid).shard
+    assert engine._streams[shard].query(), "the shard's stream still busy"
+
+
+def test_runtime_on_two_shards(dev):
+    """Two workers on two shards of the card: every request completes with
+    its full token count, the pool drains, both workers step."""
+    from repro_torch.serve import ServeRuntime
+
+    engine = _sharded_engine(dev, max_threads=8, max_inflight=4)
+    reqs = [engine.submit(p, 6) for p in SHARD_PROMPTS * 2]
+    stats = ServeRuntime(engine, n_workers=2).serve()
+    assert stats["completed"] == len(reqs) and stats["unreclaimed"] == 0
+    assert all(len(r.generated) == 6 for r in reqs)
+    assert engine.pool.free_blocks == 32
+    assert {r.shard for r in reqs} == {0, 1}
+
+
+def test_launch_counts_from_threads(dev):
+    """4 threads x 1000 era-scan launches count 4000 launches."""
+    import threading
+
+    t = [torch.tensor(a, dtype=torch.int32, device=dev)
+         for a in ([1, 2], [3, 4], [2, 9], [2, 9])]
+    barrier = threading.Barrier(4)
+
+    def launch():
+        barrier.wait()
+        for _ in range(1000):
+            era_scan.era_scan_interval(*t)
+
+    n0 = era_scan.LAUNCHES.n
+    threads = [threading.Thread(target=launch) for _ in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    torch.cuda.synchronize()
+    assert era_scan.LAUNCHES.n - n0 == 4000
+
+
+def test_int8_scale_pools_are_per_shard(dev):
+    """With int8 pages each shard has its own scale pools, sized to its
+    slots plus the scratch slot; both take writes; the run drains."""
+    engine = _sharded_engine(dev, kv_dtype="int8")
+    sizes = engine._shard_sizes
+    ptrs = set()
+    for pools, size in zip(engine._shard_pools, sizes):
+        assert pools["k"].dtype == torch.int8
+        for name in ("k_scale", "v_scale"):
+            assert pools[name].shape[1] == size + 1
+            ptrs.add(pools[name].data_ptr())
+    assert len(ptrs) == 4
+    tid = engine.pool.register_thread()
+    reqs = [engine.submit(p, 5) for p in SHARD_PROMPTS]
+    stats = engine.run(tid)
+    assert stats["completed"] == len(reqs)
+    assert engine.pool.unreclaimed() == 0
+    for pools in engine._shard_pools:
+        assert pools["k_scale"].max().item() > 0, "a shard's scales unused"

@@ -250,3 +250,34 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA"):
         era_scan.era_scan_interval(a, a, a, a)
     assert (paged_attention.LAUNCHES.n, era_scan.LAUNCHES.n) == before
+
+
+def test_launch_counter_bump_loses_no_update():
+    """``build.Counter.bump`` is locked: 4 threads x 1000 bumps count 4000
+    even with the interpreter switching threads every few bytecodes (a
+    bare ``+=`` there can lose an update between its read and write)."""
+    import sys
+    import threading
+
+    from repro_torch.kernels import build
+
+    ctr = build.Counter()
+    barrier = threading.Barrier(4)
+
+    def bump():
+        barrier.wait()
+        for _ in range(1000):
+            ctr.bump()
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=bump) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert ctr.n == 4000

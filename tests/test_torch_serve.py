@@ -263,8 +263,8 @@ def test_engine_forced_slow_path(models):
 
 
 def test_engine_defaults_to_cuda(models):
-    """With no device the engine runs on CUDA, and raises where there is
-    none rather than carrying on on the CPU."""
+    """With no device the engine runs on CUDA, sharded or not, and raises
+    where there is none rather than carrying on on the CPU."""
     _, cfg, _, params = models
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default would succeed")
@@ -272,6 +272,5 @@ def test_engine_defaults_to_cuda(models):
         ServeEngine(cfg, params, n_blocks=8, block_size=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_pools(cfg, 4, 4)
-    with pytest.raises(NotImplementedError):
-        ServeEngine(cfg, params, n_blocks=8, block_size=4, n_shards=2,
-                    device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(cfg, params, n_blocks=8, block_size=4, n_shards=2)
