@@ -20,8 +20,11 @@ Phases, each printing its own line; any failure exits non-zero:
    work): paged attention over bf16/f32 and over int8 pools at decode
    (the split-KV walk) and at a mixed step (the tensor-core tile; the f32
    query's CUDA-core walk), also in the engine's own mixed layout (decode
-   rows padded to the chunk bucket); dense flash attention at the
-   stablelm-3b and starcoder2-3b prefill shapes.  The split-KV walk
+   rows padded to the chunk bucket); the same decode and mixed shapes at
+   gemma-7b's head dim 256 (KH 16, G 1) over bf16 and int8 pages and with
+   an f32 query, and at starcoder2-3b's grouped heads (KH 2, G 12, D 128);
+   dense flash attention at the stablelm-3b, starcoder2-3b and gemma-7b
+   prefill shapes.  The split-KV walk
    and the tile are also held against the plain models of their own
    algebra (``ref.paged_attention_split_ref``, ``paged_attention_tile_ref``).
    ``ms`` is the time per eager call (host launch cost included where it
@@ -68,11 +71,25 @@ Phases, each printing its own line; any failure exits non-zero:
       --selftest`` and ``python -m repro_torch.launch.serve --requests 8``
       with ``--shards 2 --workers 2``, each in a process of its own at the
       reference's smoke size, on CUDA by default.
+   4a' stablelm-3b at full width, 8 layers, in f32: the window with one
+      worker on 1 shard, on 2 shards, and on 1 shard with the requests
+      submitted in reverse order (the control); the greedy token matches
+      against the 1-shard run printed.
 5. The model step against the plain path on the CPU at full width and
    reduced depth, and a WFE forced-slow-path run at reduced depth.
+6. One arch resident at a time, starcoder2-3b, starcoder2-7b, gemma-7b and
+   pixtral-12b (its text decoder): full-width bf16 weights from a seeded
+   generator (the parameter count checked), the 8-request window on one
+   shard with phase 3's engine and limits, decode plans on the split-KV
+   walk and mixed and prefill plans on the tile, each call's variant held
+   against ``choose_variant`` (gemma-7b also with int8 pages); output
+   tokens/s and ms per step by plan kind printed; then phase 5's model
+   step at the arch's full width and 2 layers.
 
 The line before the last is the ``kernels`` JSON line (each row with
-``launches_runtime``, its launches in 4c's 2-worker run); the last line is
+``launches_runtime``, its launches in 4c's 2-worker run; the rows of
+another arch name it in ``arch`` and take ``launches`` from its phase 6
+window); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -156,8 +173,9 @@ def gpu_name_and_limit() -> str:
 
 # ------------------------------------------------------------ phase 2: kernels
 def attention_case(dtype, b, c, nblk, layers, dev, int8=False,
-                   engine_mixed=False):
-    """Main-path-shaped operands: (layers, N, bs, KH, D) pools (one pool per
+                   engine_mixed=False, arch="stablelm-3b"):
+    """Main-path-shaped operands of ``arch``'s attention (its KH, G and D):
+    (layers, N, bs, KH, D) pools (one pool per
     layer, rotated so consecutive launches read other pages, as the layer
     loop does), random permuted tables, ragged contexts.  ``int8`` makes
     the pools int8 codes with (layers, N, KH) f32 scales.  The draws are
@@ -171,8 +189,9 @@ def attention_case(dtype, b, c, nblk, layers, dev, int8=False,
     chunk.  ``read`` (B, C) marks the rows the step reads."""
     from repro_torch.configs import get_config
 
-    cfg = get_config("stablelm-3b")
-    kh, d, g, bs = cfg.n_kv_heads, cfg.resolved_head_dim, 1, 16
+    cfg = get_config(arch)
+    kh, d, bs = cfg.n_kv_heads, cfg.resolved_head_dim, 16
+    g = cfg.n_heads // kh
     n = b * nblk + 1
     gen = torch.Generator(device=dev).manual_seed(SEED + 1000 * b + c)
     k = torch.randn((layers, n, bs, kh, d), generator=gen, device=dev).to(dtype)
@@ -261,7 +280,8 @@ def sdpa_ms(case, layers) -> tuple:
         kp, vp, ksc, vsc = _layer(case, l)
         ks.append(_dense(kp, ksc, ids, q.dtype))
         vs.append(_dense(vp, vsc, ids, q.dtype))
-    qd = q[:, :, :, 0].transpose(1, 2).contiguous()  # (B, H, C, D)
+    # (B, H, C, D), query head kh * G + g on kv head kh
+    qd = q.permute(0, 2, 3, 1, 4).reshape(b, kh * g, c, d).contiguous()
     kvpos = torch.arange(w * bs, device=q.device)
     mask = ((kvpos[None, None, :] <= qpos[:, :, None])
             & (kvpos[None, None, :] < (live * bs)[:, None, None]))[:, None]
@@ -271,7 +291,7 @@ def sdpa_ms(case, layers) -> tuple:
         l = it[0] % layers
         it[0] += 1
         F.scaled_dot_product_attention(qd, ks[l], vs[l], attn_mask=mask,
-                                       scale=case["scale"])
+                                       scale=case["scale"], enable_gqa=g > 1)
 
     return time_ms(call), time_ms(call, graph=True)
 
@@ -349,7 +369,8 @@ def check_model(case, got, layer=0) -> tuple:
     q, tables, qpos, live = (case["q"], case["tables"], case["qpos"],
                              case["live"])
     if variant == "split":
-        pps, nsplit = pa.split_plan(tables.shape[1], case["bs"])
+        pps, nsplit = pa.split_plan(tables.shape[1], case["bs"],
+                                    q.shape[-1])
         model = paged_attention_split_ref(
             q, kp, vp, tables, qpos, live, pages_per_split=pps,
             n_splits=nsplit, scale=case["scale"], k_scales=ksc, v_scales=vsc)
@@ -386,13 +407,14 @@ def _restore_counts(saved) -> None:
         ctr.n = n
 
 
-def check_attention(dtype, b, c, nblk, dev, engine_mixed=False):
+def check_attention(dtype, b, c, nblk, dev, engine_mixed=False,
+                    arch="stablelm-3b"):
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.ref import paged_attention_chunk_ref
 
     layers = 8
     case = attention_case(dtype, b, c, nblk, layers, dev,
-                          engine_mixed=engine_mixed)
+                          engine_mixed=engine_mixed, arch=arch)
     q, tables, qpos, live, scale = (case["q"], case["tables"], case["qpos"],
                                     case["live"], case["scale"])
     k0, v0 = case["k"][0], case["v"][0]
@@ -419,7 +441,8 @@ def check_attention(dtype, b, c, nblk, dev, engine_mixed=False):
     nan_safe = torch.equal(got, poisoned) and bool(torch.isfinite(got).all())
     del kp, vp
     tag = (f"paged_attention {str(dtype).split('.')[-1]} B={b} C={c} "
-           f"nblk={nblk}" + (" engine mixed layout" if engine_mixed else ""))
+           f"nblk={nblk}" + (" engine mixed layout" if engine_mixed else "")
+           + _arch_tag(arch, case))
     phase(f"{tag} vs plain", close and model_ok and bitwise and nan_safe,
           f"max_abs_err={err:.3e} (rtol {rtol:.3g} atol {atol:.3g})"
           f"{model_detail}, bounded==unbounded {bitwise}, NaN dead slots "
@@ -454,7 +477,16 @@ def time_pad_fix(case, layers, tag) -> float:
     return dict(pad_at_minus_one_ms=ms, pad_at_minus_one_device_ms=device_ms)
 
 
-def check_attention_int8(b, c, nblk, dev, engine_mixed=False):
+def _arch_tag(arch, case) -> str:
+    """' (gemma-7b: KH 16 G 1 D 256)' for an arch other than stablelm-3b."""
+    if arch == "stablelm-3b":
+        return ""
+    _, _, kh, g, d = case["q"].shape
+    return f" ({arch}: KH {kh} G {g} D {d})"
+
+
+def check_attention_int8(b, c, nblk, dev, engine_mixed=False,
+                         arch="stablelm-3b"):
     """The fused-dequant kernel over int8 pools: bf16 q against the plain
     version; f32 q against the f32 kernel on the dequantized pools,
     bitwise; NaN scales in dead table slots never read."""
@@ -464,7 +496,7 @@ def check_attention_int8(b, c, nblk, dev, engine_mixed=False):
 
     layers = 8
     case = attention_case(torch.bfloat16, b, c, nblk, layers, dev, int8=True,
-                          engine_mixed=engine_mixed)
+                          engine_mixed=engine_mixed, arch=arch)
     q, tables, qpos, live, scale = (case["q"], case["tables"], case["qpos"],
                                     case["live"], case["scale"])
     kq, vq, ksc, vsc = _layer(case, 0)
@@ -494,7 +526,8 @@ def check_attention_int8(b, c, nblk, dev, engine_mixed=False):
                                         vsc2, scale=scale)
     nan_safe = torch.equal(got, poisoned) and bool(torch.isfinite(got).all())
     tag = (f"paged_attention int8 pools, bf16 q, B={b} C={c} nblk={nblk}"
-           + (" engine mixed layout" if engine_mixed else ""))
+           + (" engine mixed layout" if engine_mixed else "")
+           + _arch_tag(arch, case))
     phase(f"{tag} vs plain", close and model_ok and bitwise and nan_safe,
           f"max_abs_err={err:.3e} (rtol {rtol:.3g} atol {atol:.3g})"
           f"{model_detail}, f32 q fused == f32 kernel on dequantized pools "
@@ -1389,6 +1422,56 @@ def serve_runtime_phase(cfg, params, dev, bf16, int8) -> dict:
     return out
 
 
+def shard_tokens(dev) -> dict:
+    """Phase 4a': stablelm-3b at full width and 8 layers, in f32 and then
+    in bf16, the 8-request window with one worker on 1 shard and on 2
+    shards, and on 1 shard again with the requests submitted in reverse
+    order (the same requests in other batches and plan shapes: the control
+    for what batch composition alone changes).  f32 queries take the f32
+    split and the CUDA-core walk, bf16 ones the bf16 split and the
+    tensor-core tile (phase 4a's path).  Each run must complete at full
+    length and drain; the greedy token matches are printed by type, with
+    no floor."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        label = str(dtype).split(".")[-1]
+        cfg = get_config("stablelm-3b").scaled(n_layers=8, dtype=dtype)
+        params = init_params(cfg,
+                             torch.Generator(device=dev).manual_seed(SEED),
+                             device=dev)
+        window = trace(8, 256, 768, cfg.vocab_size, salt=1)
+        runs = {}
+        for name, shards, prompts in (("1 shard", 1, window),
+                                      ("2 shards", SHARDS, window),
+                                      ("1 shard, reversed", 1, window[::-1])):
+            r = guarded(f"4a' {label} {name}", serve_sharded, cfg, params,
+                        dev, prompts, 16, workers=1, shards=shards)
+            if r is None:
+                continue
+            if prompts is not window:
+                r["tokens"] = r["tokens"][::-1]
+            phase(f"4a' serve stablelm-3b full width, 8 layers, {label}, "
+                  f"{name}, 1 worker, 8 requests", _full(r, 8, 16),
+                  _summary(r))
+            runs[name] = r
+        if len(runs) == 3:
+            one = runs["1 shard"]["tokens"]
+            out[label] = m = {
+                "2 shards": token_match(one, runs["2 shards"]["tokens"]),
+                "1 shard reversed": token_match(
+                    one, runs["1 shard, reversed"]["tokens"])}
+            print(f"  4a' {label} greedy token match against the 1-shard "
+                  f"run: 2 shards {m['2 shards']}; 1 shard with the "
+                  f"requests submitted in reverse order "
+                  f"{m['1 shard reversed']}", flush=True)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
 def runtime_idle(cfg, params, dev, window, workers, wall) -> None:
     """The device's idle share with ``workers`` workers on 2 shards: the
     8-request window under torch.profiler against ``wall``, the seconds of
@@ -1558,16 +1641,24 @@ def _leaves(tree):
         yield tree
 
 
-def step_matches_cpu(dev):
+def step_matches_cpu(dev, arch="stablelm-3b"):
     """Full-width, 2-layer fp32 model: one prefill chunk and one decode
     step on the card (CUDA kernels) against the same step on the CPU
-    (plain versions), from the same weights and pools."""
+    (plain versions), from the same weights and pools.  The weights of
+    another arch than stablelm-3b are drawn on the card and copied over
+    (drawing them on the CPU takes longer)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.serve import init_pools, paged_decode_step, paged_prefill_chunk
 
-    cfg = get_config("stablelm-3b").scaled(n_layers=2, dtype=torch.float32)
-    params = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    cfg = get_config(arch).scaled(n_layers=2, dtype=torch.float32)
+    if arch == "stablelm-3b":
+        params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                             device="cpu")
+    else:
+        params = _to(init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev),
+            "cpu")
     bs, n = 16, 16
     prompt = torch.tensor([trace(1, 100, 100, cfg.vocab_size)[0]],
                           dtype=torch.int32)
@@ -1590,9 +1681,12 @@ def step_matches_cpu(dev):
     finite = bool(torch.isfinite(b1).all() and torch.isfinite(b2).all())
     shape_ok = b1.shape == (1, cfg.vocab_size) and b2.shape == (1, cfg.vocab_size)
     tol = 2e-3
-    phase("full-width 2-layer fp32 step: CUDA vs CPU plain path",
+    name = "" if arch == "stablelm-3b" else f" {arch}"
+    phase(f"full-width{name} 2-layer fp32 step: CUDA vs CPU plain path",
           err <= tol and finite and shape_ok,
           f"max_abs_err={err:.3e} (tol {tol}), finite={finite}")
+    del params, out
+    torch.cuda.empty_cache()
 
 
 def _to(tree, d):
@@ -1627,6 +1721,120 @@ def forced_slow_path(dev):
           f"era_scan launches={scans} unreclaimed={engine.pool.unreclaimed()}")
 
 
+# ------------------------------------------------------------ phase 6: archs
+#: the dense archs served besides stablelm-3b, and their parameters at full
+#: width (tests/test_torch_archs.py holds the same counts against
+#: ``jax.eval_shape`` of the reference's init)
+ARCH_PARAMS = {"starcoder2-3b": 3_180_705_792, "starcoder2-7b": 7_399_351_296,
+               "gemma-7b": 8_537_680_896, "pixtral-12b": 12_273_996_800}
+#: the archs whose grouped heads at D 128 phase 2 holds (KH 2 / 4 / 8, G
+#: 12 / 9 / 4)
+GQA_ARCHS = ("starcoder2-3b", "starcoder2-7b", "pixtral-12b")
+
+
+def serve_arch_window(cfg, params, dev, kv_dtype=None) -> dict:
+    """The phase 3 engine (WFE, use_kernel=True, 2048 blocks of 16, max
+    batch 8, chunk 256, one shard) serving the 8-request window (prompts of
+    256-768 tokens, 16 new tokens) of ``cfg`` with ``kv_dtype`` pages.
+    Launch counts are zeroed just before and read just after; each
+    paged-attention call's launched variant is held against
+    ``choose_variant``.  Checks phase 3's limits and returns the launch
+    counts (by kind, variant and, under ``by_kind``, by plan kind)."""
+    from repro_torch.kernels import era_scan as es
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve import ServeEngine
+
+    n_blocks = 2048
+    engine = ServeEngine(cfg, params, n_blocks=n_blocks, block_size=16,
+                         max_batch=8, chunk_size=256, scheme="WFE",
+                         use_kernel=True, kv_dtype=kv_dtype, device=dev)
+    tid = engine.pool.register_thread()
+    log = PlanLog(engine, per_call=True)
+    torch.cuda.synchronize()
+    pa.LAUNCHES.n = pa.LAUNCHES_Q8.n = es.LAUNCHES.n = 0
+    for ctr in pa.VARIANT_LAUNCHES.values():
+        ctr.n = 0
+    wall, by_kind_s, reqs = _window(engine, tid, cfg, salt=1)
+    launches = {"paged_attention_chunk": pa.LAUNCHES.n,
+                "paged_attention_chunk_int8": pa.LAUNCHES_Q8.n,
+                "era_scan_interval": es.LAUNCHES.n}
+    variants = {k: ctr.n for k, ctr in pa.VARIANT_LAUNCHES.items()}
+    log.close()
+    by_kind = log.by_kind()
+    attn = ("paged_attention_chunk_int8" if kv_dtype == "int8"
+            else "paged_attention_chunk")
+    path = {attn, "era_scan_interval"}
+    stats = engine.sched.stats
+    toks = [r.generated for r in reqs]
+    kinds_ok = (set(by_kind) == {"decode", "mixed", "prefill"}
+                and set(by_kind["decode"]) == {"split"}
+                and _counts_ok(dict(by_kind=by_kind, launches=variants,
+                                    wrong=log.wrong),
+                               ("decode", "mixed", "prefill")))
+    ok = (stats["completed"] == 8 and all(len(t) == 16 for t in toks)
+          and all(0 <= t < cfg.vocab_size for x in toks for t in x)
+          and engine.pool.unreclaimed() == 0
+          and engine.pool.free_blocks == n_blocks and kinds_ok
+          and all((n > 0) == (k in path) for k, n in launches.items()))
+    label = kv_dtype or "bf16"
+    phase(f"6 serve {cfg.name} full width, {label} pages, 8 requests", ok,
+          f"completed={stats['completed']} unreclaimed="
+          f"{engine.pool.unreclaimed()} free_blocks={engine.pool.free_blocks}"
+          f"/{n_blocks} launches={launches} variants={variants}; calls by "
+          f"plan kind and variant: {by_kind}; calls off their variant: "
+          f"{log.wrong[:4]}")
+    gen = sum(map(len, toks))
+    kinds = ", ".join(f"{k}: {len(v)} steps, mean {np.mean(v) * 1e3:.2f} ms"
+                      for k, v in sorted(by_kind_s.items()))
+    kv_bytes = sum(t.numel() * t.element_size() for t in engine.pools.values())
+    print(f"  {cfg.name} ({label} pages): {gen / wall:.2f} output tokens/s "
+          f"(host clock), {wall:.3f} s wall; {kinds}; KV pools "
+          f"{kv_bytes / 2**30:.3f} GiB; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on "
+          f"{gpu_name_and_limit()}", flush=True)
+    del engine, log
+    torch.cuda.empty_cache()
+    return dict(launches, by_kind=by_kind, **variants)
+
+
+def serve_archs(dev) -> dict:
+    """Phase 6, one arch resident at a time: full-width bf16 weights from a
+    seeded generator (the parameter count held against ``ARCH_PARAMS``),
+    the 8-request window on one shard (gemma-7b also with int8 pages),
+    then the model step at full width and 2 layers against the plain path
+    on the CPU.  Returns each run's launches by arch (and page type)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    out = {}
+    for arch, want in ARCH_PARAMS.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        params = guarded(f"6 {arch} init", init_params, cfg,
+                         torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+        if params is None:
+            continue
+        n_params = sum(t.numel() for t in _leaves(params))
+        torch.cuda.synchronize()
+        phase(f"6 {arch} full width: parameter count", n_params == want,
+              f"{n_params} params in {cfg.dtype} (want {want}), "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak "
+              f"after init")
+        for kv in (None, "int8") if arch == "gemma-7b" else (None,):
+            launches = guarded(f"6 serve {arch} {kv or 'bf16'}",
+                               serve_arch_window, cfg, params, dev, kv)
+            if launches is not None:
+                out[(arch, kv or "bf16")] = launches
+        del params
+        torch.cuda.empty_cache()
+        guarded(f"6 {arch} step", step_matches_cpu, dev, arch)
+        print(f"  phase 6 {arch}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1657,6 +1865,21 @@ def main() -> int:
     attn[("int8", "engine")] = check_attention_int8(9, 256, 128, dev,
                                                     engine_mixed=True)
     torch.cuda.empty_cache()
+    # the other archs' shapes (phase 6 serves them): gemma-7b's head dim
+    # 256 (KH 16, G 1) over bf16 and int8 pages, and an f32 query (the
+    # 64-key split-KV walk and the CUDA-core walk); the grouped heads at
+    # D 128 of starcoder2-3b (KH 2, G 12), starcoder2-7b (KH 4, G 9) and
+    # pixtral-12b (KH 8, G 4)
+    for b, c in ((8, 1), (9, 256)):
+        for dtype in (torch.bfloat16, torch.float32):
+            attn[("gemma-7b", dtype, c)] = check_attention(
+                dtype, b, c, 128, dev, arch="gemma-7b")
+        attn[("gemma-7b", "int8", c)] = check_attention_int8(
+            b, c, 128, dev, arch="gemma-7b")
+        for arch in GQA_ARCHS:
+            attn[(arch, torch.bfloat16, c)] = check_attention(
+                torch.bfloat16, b, c, 128, dev, arch=arch)
+        torch.cuda.empty_cache()
     # dense flash attention: prefill of stablelm-3b (MHA, D 80) and of
     # starcoder2-3b (GQA 24 / 2, D 128; src/repro/configs/starcoder2_3b.py),
     # and an f32 non-causal GQA case
@@ -1666,11 +1889,18 @@ def main() -> int:
                             dev, 2e-2, "starcoder2-3b prefill")
     check_flash(2, 1024, 8, 2, 64, torch.float32, False, gen, dev, 1e-4,
                 "GQA")
+    # gemma-7b prefill (MHA 16 / 16, D 256; src/repro/configs/gemma_7b.py)
+    flash_gemma = check_flash(1, 4096, 16, 16, 256, torch.bfloat16, True, gen,
+                              dev, 2e-2, "gemma-7b prefill")
     torch.cuda.empty_cache()
 
     launches, launches_q8, schemes, runtime = serve_full_width(dev)
+    t4 = time.perf_counter()
+    shard_tokens(dev)
+    print(f"  phase 4a': {time.perf_counter() - t4:.1f} s", flush=True)
     step_matches_cpu(dev)
     forced_slow_path(dev)
+    archs = serve_archs(dev)
 
     # one row per (kernel, main-path shape) under the kernel's own name;
     # the first row of each name is at the shape earlier versions of this
@@ -1699,10 +1929,46 @@ def main() -> int:
          launches_q8["by_kind"].get("mixed", {}).get("tile", 0),
          attn[("int8", "engine")]),
     ]
+    # the other archs' rows, ``launches`` from their phase 6 windows: a
+    # decode row counts the decode plans' split calls, a mixed row every
+    # tile call (mixed and prefill plans)
+    def decode(arch, kv="bf16"):
+        return archs.get((arch, kv), {}).get("by_kind", {}).get(
+            "decode", {}).get("split", 0)
+
+    def tile(arch, kv="bf16"):
+        return archs.get((arch, kv), {}).get("tile", 0)
+
+    rows += [
+        ("paged_attention_chunk", 148, "gemma-7b decode B 8 C 1, bf16 q",
+         decode("gemma-7b"), attn[("gemma-7b", torch.bfloat16, 1)]),
+        ("paged_attention_chunk", 148, "gemma-7b mixed B 9 C 256, bf16 q",
+         tile("gemma-7b"), attn[("gemma-7b", torch.bfloat16, 256)]),
+        ("paged_attention_chunk", 148, "gemma-7b decode B 8 C 1, f32 q", 0,
+         attn[("gemma-7b", torch.float32, 1)]),
+        ("paged_attention_chunk", 148, "gemma-7b mixed B 9 C 256, f32 q", 0,
+         attn[("gemma-7b", torch.float32, 256)]),
+        ("paged_attention_chunk_int8", 129, "gemma-7b decode B 8 C 1, bf16 q",
+         decode("gemma-7b", "int8"), attn[("gemma-7b", "int8", 1)]),
+        ("paged_attention_chunk_int8", 129,
+         "gemma-7b mixed B 9 C 256, bf16 q", tile("gemma-7b", "int8"),
+         attn[("gemma-7b", "int8", 256)]),
+    ]
+    for arch in GQA_ARCHS:
+        rows += [
+            ("paged_attention_chunk", 148, f"{arch} decode B 8 C 1, bf16 q",
+             decode(arch), attn[(arch, torch.bfloat16, 1)]),
+            ("paged_attention_chunk", 148, f"{arch} mixed B 9 C 256, bf16 q",
+             tile(arch), attn[(arch, torch.bfloat16, 256)]),
+        ]
     kernels = [dict(name=name, route="cuda", source=paged,
                     replaces=f"src/repro/kernels/paged_attention.py:{line}",
                     launches=n, case=case, **row)
                for name, line, case, n, row in rows]
+    for row in kernels[8:]:
+        row["arch"] = row["case"].split()[0]
+        if " f32 q" in row["case"]:
+            row["on_main_path"] = False
     kernels[0]["launches_combine"] = launches["combine"]
     kernels[3]["on_main_path"] = kernels[4]["on_main_path"] = False
     kernels[5]["launches_combine"] = launches_q8["combine"]
@@ -1725,6 +1991,8 @@ def main() -> int:
              **flash),
         dict(name="flash_attention", case="starcoder2-3b prefill",
              **flash_src, **flash_gqa),
+        dict(name="flash_attention", case="gemma-7b prefill", **flash_src,
+             **flash_gemma),
     ]
     # ``launches_runtime``: each row's launches in phase 4c's 2-worker run
     # on 2 shards (bf16 pages), by the row's variant and, for the engine's
@@ -1735,8 +2003,9 @@ def main() -> int:
             n = None
         elif row["name"] == "era_scan_interval":
             n = rt["era_scan_interval"]
-        elif row["name"] != "paged_attention_chunk" or "f32" in row["case"]:
-            n = 0  # int8 pages, f32 queries and flash are off this run
+        elif (row["name"] != "paged_attention_chunk" or "f32" in row["case"]
+              or "arch" in row):
+            n = 0  # int8 pages, f32 queries, other archs and flash are off
         elif row["case"].startswith("engine"):
             n = rt["by_kind"].get("mixed", {}).get("tile", 0)
         else:

@@ -1,7 +1,9 @@
 """Architecture registry of the port: ``get_config`` / ``get_smoke_config``.
 
-Only the architectures whose serving path is ported are listed; the other
-names of ``repro.configs`` raise until they are.
+Only the architectures the paged engine serves are listed: the dense
+full-attention stacks without MLA or an encoder, which are the ones the
+reference's serving CLI accepts.  The other names of ``repro.configs``
+raise until their paths are ported.
 """
 
 from __future__ import annotations
@@ -14,6 +16,10 @@ from repro_torch.models.common import ArchConfig
 
 _MODULES = {
     "stablelm-3b": "stablelm_3b",
+    "starcoder2-3b": "starcoder2_3b",
+    "starcoder2-7b": "starcoder2_7b",
+    "gemma-7b": "gemma_7b",
+    "pixtral-12b": "pixtral_12b",
 }
 
 ALL_ARCHS = tuple(_MODULES)

@@ -152,9 +152,17 @@ class NatarajanBST:
             # poison makes that visible) — the chain was resolved elsewhere
             return False
         child_val = child_cell.load()
+        victim = rec.leaf
         if not child_val[1]:
             # our leaf's edge is not flagged: the delete being helped flagged
-            # the other side — the "sibling" is the child side itself
+            # the other side — the "sibling" is the child side itself, and
+            # the leaf spliced out is the target of the flagged edge, not
+            # ours (ours stays in the tree).  A flagged edge never changes,
+            # so reading it before the splice names the removed leaf.
+            flagged = sibling_cell.load()
+            if flagged is POISON:
+                return False  # parent already reclaimed
+            victim = flagged[0]
             sibling_cell = child_cell
         # tag the sibling edge so nothing changes underneath while it moves up
         while True:
@@ -170,7 +178,7 @@ class NatarajanBST:
         if succ_cell.cas((successor, False, False), (s_addr, s_flag, False)):
             # unlinked: retire the removed internal node and the deleted leaf
             self.smr.retire(parent, tid)
-            self.smr.retire(rec.leaf, tid)
+            self.smr.retire(victim, tid)
             return True
         return False
 

@@ -25,6 +25,15 @@
 // banks.  Two 16-row m-tiles per warp (128-row tiles, each K/V fragment
 // used twice) were measured slower: 255 registers and spills at D = 128.
 //
+// D = 256 (gemma).  A warp's O accumulator is 16 x 256 f32, 128 registers
+// a thread; Q held as A fragments would add 64 and S over 64 keys 32, past
+// the 255 a thread may have.  So at D > 128 the tile walks K/V tiles of 32
+// keys (S is 16 registers) and reloads each k-step's Q fragment from
+// shared memory (Q stays there for the whole walk) instead of holding all
+// of Q in registers; FlashAttention-2 cuts its hdim-256 tiles the same
+// way.  Shared memory: Q 33 KB plus a two-stage ring of 32-key K/V tiles,
+// 66 KB (bf16) or 34 KB of codes plus 33 KB widened (int8).
+//
 // Why mma.sync and not wgmma: wgmma reads its B operand from shared
 // memory through a descriptor whose layouts are 32/64/128-byte swizzle
 // atoms or 8x16-byte core matrices.  A D = 80 row is 160 bytes and fits
@@ -64,7 +73,6 @@
 namespace attn_tile {
 
 constexpr int kRows = 64;      // query rows per tile, 16 per warp
-constexpr int kKeys = 64;      // keys per K/V tile
 constexpr int kThreads = 128;  // one warpgroup
 constexpr int kStages = 2;
 constexpr float kNegInf = -1e30f;  // the running max's floor
@@ -72,7 +80,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Shape {
-  static_assert(D % 16 == 0 && D <= 128, "head_dim must be a multiple of 16, <= 128");
+  static_assert(D % 16 == 0 && D <= 256, "head_dim must be a multiple of 16, <= 256");
+  static constexpr int kKeys = D > 128 ? 32 : 64;  // keys per K/V tile
+  static constexpr bool kQInRegs = D <= 128;  // else reloaded per k-step
   static constexpr int kStride = D + 8;     // bf16 elements per smem row
   static constexpr int kRawStride = D + 16; // bytes per raw int8 smem row
   static constexpr int kKSteps = D / 16;    // k-steps of S = Q K^T
@@ -86,9 +96,9 @@ __host__ __device__ constexpr size_t smem_bytes() {
   using S = Shape<D>;
   size_t q = sizeof(__nv_bfloat16) * kRows * S::kStride;
   if (!kQ8) return q + sizeof(__nv_bfloat16) * kStages * 2 * S::kTile;
-  return q + (size_t)kStages * 2 * kKeys * S::kRawStride  // raw code ring
-         + sizeof(__nv_bfloat16) * 2 * S::kTile           // widened K, V
-         + sizeof(float) * kStages * 2 * kKeys;           // scale ring
+  return q + (size_t)kStages * 2 * S::kKeys * S::kRawStride  // raw code ring
+         + sizeof(__nv_bfloat16) * 2 * S::kTile              // widened K, V
+         + sizeof(float) * kStages * 2 * S::kKeys;           // scale ring
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -173,7 +183,8 @@ __device__ __forceinline__ void widen16(const int8_t* src,
   reinterpret_cast<int4*>(dst)[1] = make_int4(w[4], w[5], w[6], w[7]);
 }
 
-// One tile of 64 query rows [row0, row0 + 64) against keys [0, kend);
+// One tile of 64 query rows [row0, row0 + 64) against keys [0, kend),
+// walked in K/V tiles of Shape<D>::kKeys keys;
 // warp w owns rows [row0 + 16 w, row0 + 16 w + 16).
 //
 // Src provides, for rows r < src.rows and keys kp < kend:
@@ -189,6 +200,9 @@ __device__ __forceinline__ void run(const Src& src, int row0, int kend,
                                     float scale, char* smem) {
   using S = Shape<D>;
   using KV = typename Src::KV;
+  constexpr int kKeys = S::kKeys;
+  constexpr int kNT = kKeys / 8;   // n-tiles of S (8 keys each)
+  constexpr int kKP = kKeys / 16;  // k-steps of P V (16 keys each)
   constexpr int kCpr = D * sizeof(KV) / 16;  // 16-byte chunks per K/V row
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -273,7 +287,7 @@ __device__ __forceinline__ void run(const Src& src, int row0, int kend,
 #pragma unroll
   for (int n = 0; n < S::kNTiles; ++n)
     o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  uint32_t qf[S::kKSteps][4];
+  uint32_t qf[S::kQInRegs ? S::kKSteps : 1][4];
   const float sl = scale * kLog2e;  // scores in log2 units: exp2 below
 
   for (int t = 0; t < ntiles; ++t) {
@@ -281,11 +295,13 @@ __device__ __forceinline__ void run(const Src& src, int row0, int kend,
     cp_async_commit();
     cp_async_wait<1>();  // every group but the newest: tile t has landed
     __syncthreads();
-    if (t == 0) {
+    if constexpr (S::kQInRegs) {
+      if (t == 0) {
 #pragma unroll
-      for (int ks = 0; ks < S::kKSteps; ++ks)
-        ldsm_x4(qf[ks], sQ + (wrow + (lane & 15)) * S::kStride + ks * 16 +
-                            (lane >> 4) * 8);
+        for (int ks = 0; ks < S::kKSteps; ++ks)
+          ldsm_x4(qf[ks], sQ + (wrow + (lane & 15)) * S::kStride + ks * 16 +
+                              (lane >> 4) * 8);
+      }
     }
     const __nv_bfloat16* sK;
     const __nv_bfloat16* sV;
@@ -314,26 +330,34 @@ __device__ __forceinline__ void run(const Src& src, int row0, int kend,
 
     const int k0 = t * kKeys;
     if (k0 <= wmax) {  // warp-uniform: some row of this warp sees the tile
-      // ---- S = Q K^T, 16 rows x 64 keys per warp
-      float s[8][4];
+      // ---- S = Q K^T, 16 rows x kKeys keys per warp
+      float s[kNT][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
       for (int ks = 0; ks < S::kKSteps; ++ks) {
+        uint32_t qa[4];
+        if constexpr (S::kQInRegs) {
 #pragma unroll
-        for (int np = 0; np < 4; ++np) {
+          for (int i = 0; i < 4; ++i) qa[i] = qf[ks][i];
+        } else {
+          ldsm_x4(qa, sQ + (wrow + (lane & 15)) * S::kStride + ks * 16 +
+                          (lane >> 4) * 8);
+        }
+#pragma unroll
+        for (int np = 0; np < kKP; ++np) {
           uint32_t b[4];
           ldsm_x4(b, sK + (np * 16 + (lane & 7) + (lane >> 4) * 8) * S::kStride +
                          ks * 16 + ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
-          mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
+          mma_bf16(s[2 * np], qa, b[0], b[1]);
+          mma_bf16(s[2 * np + 1], qa, b[2], b[3]);
         }
       }
       // ---- scale, mask, online softmax
       const bool need_mask = k0 + kKeys - 1 > wmin || k0 + kKeys > kend;
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kNT; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = 8 * j + 2 * tig + (e & 1);
@@ -364,7 +388,7 @@ __device__ __forceinline__ void run(const Src& src, int row0, int kend,
         o[n][3] *= corr[1];
       }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kNT; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float p = ex2(s[j][e] - m[e >> 1]);
@@ -374,7 +398,7 @@ __device__ __forceinline__ void run(const Src& src, int row0, int kend,
       }
       // ---- O += P V: P's C fragments of two n-tiles are one A fragment
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < kKP; ++kk) {
         const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),

@@ -12,7 +12,7 @@
 //
 // Two variants; the wrapper (flash_attention.py: choose_variant) picks one:
 //
-// 1. Tensor-core tile (flash_tile_kernel), bf16 with D 64, 80 or 128: the
+// 1. Tensor-core tile (flash_tile_kernel), bf16 with D 64, 80, 128 or 256: the
 //    shared tile of attention_tile.cuh over dense K/V rows (row stride
 //    KH * D).  The grid is (64-row tiles, KH, B), heaviest causal tiles
 //    first.  Under the causal mask a tile walks keys up to its last row's
@@ -166,6 +166,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const int rows = Tn * (H / KH);
   dim3 grid((rows + kRowsPerBlock - 1) / kRowsPerBlock, KH, B);
   const size_t smem = 2 * (size_t)kTileK * D * sizeof(float);
+  // 64 KB at D 256: past the 48 KB a kernel gets without asking
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_kernel<T, DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(2 * (size_t)kTileK * 32 * DPL * sizeof(float)));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   flash_kernel<T, DPL><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Tn, H, KH, D, causal,
@@ -182,6 +187,8 @@ int by_head_dim(const void* q, const void* k, const void* v, void* out, int B,
     case 2: return launch<T, 2>(q, k, v, out, B, Tn, H, KH, D, causal, scale, s);
     case 3: return launch<T, 3>(q, k, v, out, B, Tn, H, KH, D, causal, scale, s);
     case 4: return launch<T, 4>(q, k, v, out, B, Tn, H, KH, D, causal, scale, s);
+    case 5: case 6: case 7: case 8:
+      return launch<T, 8>(q, k, v, out, B, Tn, H, KH, D, causal, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -267,7 +274,8 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor-core tile (variant 1): bf16 q, k, v and out; D 64, 80 or 128.
+// The tensor-core tile (variant 1): bf16 q, k, v and out; D 64, 80, 128 or
+// 256.
 // Returns the cudaError_t of the launch.
 extern "C" int flash_attention_tile(const void* q, const void* k,
                                     const void* v, void* out, int B, int Tn,
@@ -279,6 +287,7 @@ extern "C" int flash_attention_tile(const void* q, const void* k,
     case 64: return launch_tile<64>(q, k, v, out, B, Tn, H, KH, causal, scale, s);
     case 80: return launch_tile<80>(q, k, v, out, B, Tn, H, KH, causal, scale, s);
     case 128: return launch_tile<128>(q, k, v, out, B, Tn, H, KH, causal, scale, s);
+    case 256: return launch_tile<256>(q, k, v, out, B, Tn, H, KH, causal, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

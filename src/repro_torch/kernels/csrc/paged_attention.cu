@@ -30,8 +30,10 @@
 //    (each live page read once per (request, kv head): 3.35 TB/s), so the
 //    work is spread over the pages: the grid is (splits, KH, B), a split
 //    being a fixed run of pages_per_split table slots counted from slot 0
-//    (its boundaries depend on the table width and bs alone, never on
-//    num_live or the walk bound).  A split copies its K and V rows into
+//    (its boundaries depend on the table width, bs and D alone, never on num_live or the walk bound: the wrapper's split_plan
+//    gives a split 128 keys, or 64 at D 256, where 128 keys of f32 K and V
+//    would not fit in shared memory; every pool type takes the same cut,
+//    so the fused int8 walk equals the walk over dequantized pools).  A split copies its K and V rows into
 //    shared memory with cp.async, all at once, while it loads q; scores,
 //    P and the partial accumulator are f32 on the CUDA cores; it writes
 //    (m, l, acc) to f32 scratch.  A split past the bound writes
@@ -77,6 +79,7 @@ constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
 constexpr float kNegInf = -1e30f;
 constexpr int kSplitKeys = 128;  // keys one split covers at most
 constexpr int kSplitRows = 15;   // C * G of the split variant
+constexpr int kMaxHeadDim = 256;
 constexpr size_t kMaxSmem = 227 * 1024;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -329,7 +332,9 @@ __device__ __forceinline__ void load16_f32(const TKV* p, float* x,
 }
 
 // Partials: m, l (B, KH, R, nsplit); acc (B, KH, R, nsplit, D), all f32.
-template <typename TQ, typename TKV>
+// A split holds pps * bs <= kSplitKeys keys (skeys, the stride of its
+// shared rows); NV = ceil(D / 32) accumulators a lane keeps per row in P V.
+template <typename TQ, typename TKV, int NV>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
                    const TKV* __restrict__ v_pool,
@@ -364,14 +369,15 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
   }
   const int key0 = j0 * bs, nk = (j1 - j0) * bs;
   const int cpr = D / kEpc;  // 16-byte chunks per row
+  const int skeys = pps * bs;
 
-  TKV* sk = reinterpret_cast<TKV*>(split_smem);  // (kSplitKeys, D)
-  TKV* sv = sk + kSplitKeys * D;                 // (kSplitKeys, D)
-  float* sq = reinterpret_cast<float*>(sv + kSplitKeys * D);  // (R, D)
-  float* ss = sq + R * D;                        // (R, kSplitKeys)
-  float* ksk = ss + R * kSplitKeys;              // (kSplitKeys,) int8 only
-  float* vsk = ksk + kSplitKeys;                 // (kSplitKeys,) int8 only
-  float* red = vsk + kSplitKeys;                 // (kWarps, R, D)
+  TKV* sk = reinterpret_cast<TKV*>(split_smem);  // (skeys, D)
+  TKV* sv = sk + skeys * D;                      // (skeys, D)
+  float* sq = reinterpret_cast<float*>(sv + skeys * D);  // (R, D)
+  float* ss = sq + R * D;                        // (R, skeys)
+  float* ksk = ss + R * skeys;                   // (skeys,) int8 only
+  float* vsk = ksk + skeys;                      // (skeys,) int8 only
+  float* red = vsk + skeys;                      // (kWarps, R, D)
   int* spage = reinterpret_cast<int*>(red + kWarps * R * D);  // (pps,)
   float* kspage = reinterpret_cast<float*>(spage + pps);      // (pps,)
   float* vspage = kspage + pps;                               // (pps,)
@@ -433,7 +439,7 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
 #pragma unroll
     for (int r = 0; r < kSplitRows; ++r) {
       if (r < R)
-        ss[r * kSplitKeys + tid] =
+        ss[r * skeys + tid] =
             kp <= qpos[(size_t)b * C + r / G] ? acc[r] * scale : -INFINITY;
     }
   }
@@ -441,7 +447,7 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
 
   // the split's softmax, a warp per row: m, l out; P in place of S
   for (int r = warp; r < R; r += kWarps) {
-    float* sr = ss + r * kSplitKeys;
+    float* sr = ss + r * skeys;
     float mx = kNegInf;
     for (int key = lane; key < nk; key += 32) mx = fmaxf(mx, sr[key]);
     mx = warp_max(mx);
@@ -461,15 +467,16 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
 
   // acc = P V: warp w takes keys [32w, 32w + 32) in order, lanes split D
   // (d = lane + 32i); the four warps' sums are added in warp order
-  float a[kSplitRows][4];
+  float a[kSplitRows][NV];
 #pragma unroll
   for (int r = 0; r < kSplitRows; ++r)
-    a[r][0] = a[r][1] = a[r][2] = a[r][3] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) a[r][i] = 0.f;
   const int kw1 = min(32 * warp + 32, nk);
   for (int key = 32 * warp; key < kw1; ++key) {
-    float v[4];
+    float v[NV];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < NV; ++i) {
       const int d = lane + 32 * i;
       v[i] = d < D ? to_f32(sv[key * D + d]) : 0.f;
       if constexpr (kQuantized) v[i] = __fmul_rn(v[i], vsk[key]);
@@ -477,9 +484,9 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
 #pragma unroll
     for (int r = 0; r < kSplitRows; ++r) {
       if (r < R) {
-        const float p = ss[r * kSplitKeys + key];
+        const float p = ss[r * skeys + key];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[r][i] = fmaf(p, v[i], a[r][i]);
+        for (int i = 0; i < NV; ++i) a[r][i] = fmaf(p, v[i], a[r][i]);
       }
     }
   }
@@ -487,7 +494,7 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
   for (int r = 0; r < kSplitRows; ++r) {
     if (r < R) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < NV; ++i) {
         const int d = lane + 32 * i;
         if (d < D) red[(warp * R + r) * D + d] = a[r][i];
       }
@@ -505,7 +512,8 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
 // Merge each row's splits in split order; out = acc / max(l, 1e-30).
 // Grid (R, KH, B): the first warp turns the splits' maxima into weights
 // e^(m_s - M) in shared memory and lane 0 sums l_s e^(m_s - M) in split
-// order; then one thread per d folds acc_s e^(m_s - M) in split order.
+// order; then each thread folds acc_s e^(m_s - M) in split order for its
+// d (d = threadIdx.x + 128 i).
 template <typename TQ>
 __global__ void __launch_bounds__(kWarps * 32)
 split_combine_kernel(const float* __restrict__ part_m,
@@ -531,15 +539,16 @@ split_combine_kernel(const float* __restrict__ part_m,
     }
   }
   __syncthreads();
-  const int d = threadIdx.x;
-  if (d >= D) return;
-  const float* acc = part_acc + row * nsplit * D + d;
-  float o = 0.f;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    const float* acc = part_acc + row * nsplit * D + d;
+    float o = 0.f;
 #pragma unroll 8
-  for (int s = 0; s < nsplit; ++s) o = fmaf(acc[(size_t)s * D], weight[s], o);
-  store_f32(out + (((size_t)b * C + r / G) * KH + h) * (size_t)G * D +
-                (size_t)(r % G) * D + d,
-            o * inv);
+    for (int s = 0; s < nsplit; ++s)
+      o = fmaf(acc[(size_t)s * D], weight[s], o);
+    store_f32(out + (((size_t)b * C + r / G) * KH + h) * (size_t)G * D +
+                  (size_t)(r % G) * D + d,
+              o * inv);
+  }
 }
 
 // ------------------------------------------------------------- launchers
@@ -575,6 +584,7 @@ int by_head_dim(const Args& a) {
     case 2: return launch<TQ, TKV, 2>(a);
     case 3: return launch<TQ, TKV, 3>(a);
     case 4: return launch<TQ, TKV, 4>(a);
+    case 5: case 6: case 7: case 8: return launch<TQ, TKV, 8>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -615,24 +625,29 @@ int tile_by_head_dim(const Args& a) {
     case 64: return launch_tile<64, TKV>(a);
     case 80: return launch_tile<80, TKV>(a);
     case 128: return launch_tile<128, TKV>(a);
+    case 256: return launch_tile<256, TKV>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename TQ, typename TKV>
-int launch_split(const Args& a, float* pm, float* pl, float* pacc, int pps,
-                 int nsplit) {
+// Dynamic shared memory of a split over `keys` keys with R rows of D.
+template <typename TKV>
+size_t split_smem_bytes(int rows, int d, int keys) {
+  return 2 * (size_t)keys * d * sizeof(TKV) +
+         sizeof(float) * ((size_t)rows * d + (size_t)rows * keys +
+                          5 * (size_t)keys + (size_t)kWarps * rows * d);
+}
+
+template <typename TQ, typename TKV, int NV>
+int launch_split_nv(const Args& a, float* pm, float* pl, float* pacc, int pps,
+                    int nsplit) {
   const int R = a.C * a.G;
-  auto kernel = paged_split_kernel<TQ, TKV>;
-  const auto smem_for = [&](int rows, int d) {
-    return 2 * (size_t)kSplitKeys * d * sizeof(TKV) +
-           sizeof(float) * ((size_t)rows * d + (size_t)rows * kSplitKeys +
-                            5 * (size_t)kSplitKeys +
-                            (size_t)kWarps * rows * d);
-  };
-  static const cudaError_t attr = allow_smem(kernel, smem_for(kSplitRows, 128));
+  const size_t smem = split_smem_bytes<TKV>(R, a.D, pps * a.bs);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = paged_split_kernel<TQ, TKV, NV>;
+  static const cudaError_t attr = allow_smem(kernel, kMaxSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<dim3(nsplit, a.KH, a.B), kWarps * 32, smem_for(R, a.D), a.stream>>>(
+  kernel<<<dim3(nsplit, a.KH, a.B), kWarps * 32, smem, a.stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), static_cast<const float*>(a.ksc),
       static_cast<const float*>(a.vsc), static_cast<const int32_t*>(a.tables),
@@ -644,6 +659,14 @@ int launch_split(const Args& a, float* pm, float* pl, float* pacc, int pps,
                              nsplit * sizeof(float), a.stream>>>(
       pm, pl, pacc, static_cast<TQ*>(a.out), a.C, a.KH, a.G, a.D, nsplit);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TQ, typename TKV>
+int launch_split(const Args& a, float* pm, float* pl, float* pacc, int pps,
+                 int nsplit) {
+  if (a.D <= 128)
+    return launch_split_nv<TQ, TKV, 4>(a, pm, pl, pacc, pps, nsplit);
+  return launch_split_nv<TQ, TKV, 8>(a, pm, pl, pacc, pps, nsplit);
 }
 
 template <typename TQ>
@@ -687,7 +710,7 @@ extern "C" int paged_attention_chunk(int q_dtype, int kv_dtype, const void* q,
                            out, B, C, KH, G, D, bs, nblk, scale, stream);
   if (kv_dtype == 3 && (k_scales == nullptr || v_scales == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (2 * (size_t)bs * D * sizeof(float) > kMaxSmem)
+  if (2 * (size_t)bs * D * sizeof(float) > kMaxSmem || D > kMaxHeadDim)
     return static_cast<int>(cudaErrorInvalidValue);
   if (q_dtype == 0) return by_pool_type<float>(kv_dtype, a);
   if (q_dtype == 1) return by_pool_type<__nv_bfloat16>(kv_dtype, a);
@@ -695,7 +718,7 @@ extern "C" int paged_attention_chunk(int q_dtype, int kv_dtype, const void* q,
 }
 
 // The tensor-core tile (variant 1): bf16 q; kv_dtype 1 (bf16) or 3 (int8);
-// D 64, 80 or 128.
+// D 64, 80, 128 or 256.
 extern "C" int paged_attention_tile(int kv_dtype, const void* q,
                                     const void* k, const void* v,
                                     const void* k_scales,
@@ -713,7 +736,8 @@ extern "C" int paged_attention_tile(int kv_dtype, const void* q,
 }
 
 // The split-KV walk and its combine (variant 2): C*G <= 15, D a multiple of
-// 16 up to 128, pages_per_split * bs <= 128.  part_m, part_l (B, KH, C*G,
+// 16 up to 256, pages_per_split * bs <= 128 keys whose K and V fit in
+// shared memory beside the split's f32 rows (the wrapper's split_plan).  part_m, part_l (B, KH, C*G,
 // nsplit) and part_acc (B, KH, C*G, nsplit, D) are f32 scratch.
 extern "C" int paged_attention_split(
     int q_dtype, int kv_dtype, const void* q, const void* k, const void* v,
@@ -723,7 +747,7 @@ extern "C" int paged_attention_split(
     int nblk, int pps, int nsplit, float scale, void* stream) {
   const Args a = make_args(q, k, v, k_scales, v_scales, tables, qpos, live,
                            out, B, C, KH, G, D, bs, nblk, scale, stream);
-  if (C * G > kSplitRows || D % 16 != 0 || D > 128 || pps < 1 ||
+  if (C * G > kSplitRows || D % 16 != 0 || D > kMaxHeadDim || pps < 1 ||
       pps * bs > kSplitKeys || (long long)pps * nsplit < nblk)
     return static_cast<int>(cudaErrorInvalidValue);
   if (kv_dtype == 3 && (k_scales == nullptr || v_scales == nullptr))

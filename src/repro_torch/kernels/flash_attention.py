@@ -8,7 +8,7 @@ its tiling and have no counterpart here: the CUDA kernel picks its own
 tiles and takes any T.  ``csrc/flash_attention.cu`` holds two variants
 (design and what bounds each on an H100 are in its header), and
 :func:`choose_variant` picks one: ``"tile"``, the tensor-core tile of
-``csrc/attention_tile.cuh`` for bf16 at D 64, 80 or 128, or
+``csrc/attention_tile.cuh`` for bf16 at D 64, 80, 128 or 256, or
 ``"cuda_core"``, the exact f32 walk (and bf16 at any other D).  This
 module checks the operands and launches the chosen variant on the current
 CUDA stream.  Its plain PyTorch version is ``flash_attention_ref``.
@@ -29,9 +29,9 @@ __all__ = ["flash_attention", "flash_attention_ref", "choose_variant",
            "LAUNCHES", "VARIANT_LAUNCHES"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 #: head dims the tensor-core tile is instantiated for
-TILE_HEAD_DIMS = (64, 80, 128)
+TILE_HEAD_DIMS = (64, 80, 128, 256)
 
 #: launches of the kernel (``LAUNCHES.n``), bumped once per call
 LAUNCHES = build.Counter()
@@ -50,7 +50,7 @@ def choose_variant(dtype: torch.dtype, d: int) -> str:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q (B,T,H,D), k/v (B,T,KH,D) CUDA tensors of one dtype (f32 or bf16),
-    H a multiple of KH, D <= 128.  Returns (B,T,H,D) in q's dtype."""
+    H a multiple of KH, D <= 256.  Returns (B,T,H,D) in q's dtype."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")

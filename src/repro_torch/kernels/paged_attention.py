@@ -28,6 +28,7 @@ and the plain version by the tensor's device.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -41,23 +42,25 @@ from .ref import (check_scales, paged_attention_chunk_int8_ref,
 __all__ = ["paged_attention_chunk", "paged_attention",
            "paged_attention_chunk_ref", "paged_attention_ref",
            "paged_attention_chunk_int8_ref", "paged_attention_int8_ref",
-           "choose_variant", "split_plan", "LAUNCHES", "LAUNCHES_Q8",
+           "choose_variant", "split_keys", "split_plan", "LAUNCHES",
+           "LAUNCHES_Q8",
            "VARIANT_LAUNCHES"]
 
 #: the kernels' type codes: the query's, and the pools' (any of the four)
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
               torch.int8: 3}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 #: shared memory a block may use on an H100 (227 KB); the CUDA-core walk
 #: stages one f32 (bs, D) K and V tile, 8 * bs * D bytes
 MAX_SMEM_BYTES = 227 * 1024
 #: head dims the tensor-core tile is instantiated for (multiples of 16)
-TILE_HEAD_DIMS = (64, 80, 128)
+TILE_HEAD_DIMS = (64, 80, 128, 256)
 #: the split-KV walk: fewer query rows than this per (request, kv head),
 #: and at most SPLIT_KEYS keys (pages_per_split * bs) per split
 SPLIT_MAX_ROWS = 16
 SPLIT_KEYS = 128
+_WARPS = 4  # the split kernel's warps, each with a (rows, D) f32 partial
 
 #: launches over float pools (``LAUNCHES.n``), bumped once per call
 LAUNCHES = build.Counter()
@@ -75,7 +78,7 @@ def choose_variant(q_dtype: torch.dtype, kv_dtype: torch.dtype, rows: int,
     rows per (request, kv head), head dim ``d`` and block size ``bs`` over
     pools of ``kv_dtype``: ``"split"``, ``"tile"`` or ``"cuda_core"``."""
     if rows < SPLIT_MAX_ROWS:
-        fits = d % 16 == 0 and d <= MAX_HEAD_DIM and bs <= SPLIT_KEYS
+        fits = d % 16 == 0 and d <= MAX_HEAD_DIM and bs <= split_keys(d)
         return "split" if fits else "cuda_core"
     if (q_dtype == torch.bfloat16 and d in TILE_HEAD_DIMS
             and kv_dtype in (torch.bfloat16, torch.int8)):
@@ -83,13 +86,36 @@ def choose_variant(q_dtype: torch.dtype, kv_dtype: torch.dtype, rows: int,
     return "cuda_core"
 
 
-def split_plan(nblk: int, bs: int) -> tuple:
+def _split_smem(keys: int, d: int, itemsize: int) -> int:
+    """The split kernel's shared memory (``split_smem_bytes`` in the
+    source) for ``keys`` keys of K and V of ``itemsize`` bytes at the most
+    rows it takes."""
+    rows = SPLIT_MAX_ROWS - 1
+    return 2 * keys * d * itemsize + 4 * (rows * d + rows * keys + 5 * keys
+                                          + _WARPS * rows * d)
+
+
+@functools.lru_cache(maxsize=None)
+def split_keys(d: int) -> int:
+    """Keys one split of the split-KV walk covers at head dim ``d``:
+    ``SPLIT_KEYS``, halved until a split's K and V fit in shared memory
+    beside its f32 rows in the widest pool type (f32): 128 up to D 128, 64
+    at D 256.  The pool type does not enter, so every pool type cuts the
+    walk at the same keys, and the fused int8 walk equals the walk over
+    the dequantized f32 pools bitwise, as the reference requires."""
+    keys = SPLIT_KEYS
+    while keys > 16 and _split_smem(keys, d, 4) > MAX_SMEM_BYTES:
+        keys //= 2
+    return keys
+
+
+def split_plan(nblk: int, bs: int, d: int) -> tuple:
     """(pages_per_split, n_splits) of the split-KV walk over a table of
-    ``nblk`` slots: splits of ``SPLIT_KEYS // bs`` pages counted from slot
-    0.  It depends on the table's width and bs alone, never on
-    ``num_live_blocks``, so the bounded and the unbounded walk cut the
-    pages at the same slots."""
-    pps = max(1, SPLIT_KEYS // bs)
+    ``nblk`` slots at block size ``bs`` and head dim ``d``: splits of
+    ``split_keys(d) // bs`` pages counted from slot 0.  It depends on the
+    table's width, bs and D alone, never on ``num_live_blocks``, so the
+    bounded and the unbounded walk cut the pages at the same slots."""
+    pps = max(1, split_keys(d) // bs)
     return pps, max(1, -(-nblk // pps))
 
 
@@ -174,7 +200,7 @@ def paged_attention_chunk(q: torch.Tensor, k_pool: torch.Tensor,
                 num_live_blocks.data_ptr())
     kv = _KV_DTYPES[k_pool.dtype]
     if variant == "split":
-        pps, nsplit = split_plan(nblk, bs)
+        pps, nsplit = split_plan(nblk, bs, d)
         part = dict(dtype=torch.float32, device=q.device)
         part_m = torch.empty((b, kh, c * g, nsplit), **part)
         part_l = torch.empty((b, kh, c * g, nsplit), **part)

@@ -2,8 +2,10 @@
 
 Both build the key and shape tree of ``repro.models.transformer.init_params``
 for dense attention stacks: per-layer weights stacked along a leading group
-axis under ``groups/b{j}_{kind}``, plus ``embed``, ``final_norm`` and, when
-embeddings are untied, ``head``.  Matmul weights and the embedding table are
+axis under ``groups/b{j}_{kind}``, plus ``embed``, ``final_norm``, ``head``
+when embeddings are untied, and ``frontend/proj`` for the patch frontend
+(pixtral's stub, ``repro/models/frontends.py``: the paged steps never read
+it, and the tree carries it so the reference's parameters map one to one).  Matmul weights and the embedding table are
 stored already cast to ``cfg.dtype``, which is bit-identical to the per-call
 cast in ``layers.matmul`` and ``embed_tokens`` and halves their bytes in
 bf16; norm parameters stay in ``cfg.param_dtype``.
@@ -27,7 +29,8 @@ _TRUNC_STD = 0.87962566103423978
 
 
 def _check_supported(cfg) -> None:
-    if cfg.use_mla or cfg.is_moe or cfg.is_encoder_decoder or cfg.frontend:
+    if (cfg.use_mla or cfg.is_moe or cfg.is_encoder_decoder
+            or cfg.frontend not in (None, "patches")):
         raise NotImplementedError(
             f"{cfg.name}: only dense attention stacks are ported so far")
     if any(k != "attn" for k in cfg.block_pattern):
@@ -67,6 +70,8 @@ def _shapes(cfg) -> Params:
     }
     if not cfg.tie_embeddings:
         tree["head"] = {"kernel": ((d, v), "dense")}
+    if cfg.frontend:
+        tree["frontend"] = {"proj": ((d, d), "dense")}
     return tree
 
 

@@ -337,19 +337,32 @@ class ServeEngine:
         tables[:b, :nblk] = local
         return tables
 
+    def _inputs(self, arrays) -> List[Optional[torch.Tensor]]:
+        """The step's int32 inputs on the device (None stays None).  On the
+        card each goes through pinned memory in an asynchronous copy on
+        the current stream: no host sync."""
+        out = []
+        for a in arrays:
+            t = (None if a is None
+                 else torch.from_numpy(np.ascontiguousarray(a, np.int32)))
+            if t is not None and self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out.append(t)
+        return out
+
     def _run_step(self, plan, step, arrays, b: int) -> np.ndarray:
         """Run ``step(cfg, params, pools, *arrays)`` on the plan's shard:
         every copy, launch and the argmax on the shard's stream under the
         dispatch lock, the sampled ids copied into pinned host memory
-        behind an event; the wait for that event happens outside the lock.
-        Returns the (b,) sampled ids."""
+        behind an event; the wait for that event happens outside the lock,
+        and nothing under the lock syncs with the host.  Returns the (b,)
+        sampled ids."""
         s = plan.shard
         stream = self._streams[s]
         on_stream = (torch.cuda.stream(stream) if stream is not None
                      else contextlib.nullcontext())
         with self._dispatch_lock, on_stream:
-            args = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
-                self.device) for a in arrays]
+            args = self._inputs(arrays)
             logits, _ = step(self.cfg, self.params, self._shard_pools[s],
                              *args)
             ids = torch.argmax(logits, dim=-1)[:b]
@@ -398,7 +411,8 @@ class ServeEngine:
         chunk_lens = np.array([n], np.int32)
         self._shapes.add(("prefill", tables.shape, cb))
         return self._run_step(plan, paged_prefill_chunk,
-                              (tables, tokens, positions, chunk_lens), 1)
+                              self._chunk_inputs(tables, tokens, positions,
+                                                 chunk_lens), 1)
 
     def _dispatch_mixed(self, plan) -> np.ndarray:
         """Decode rows + one prefill chunk row in ONE dispatch of the chunked
@@ -420,7 +434,23 @@ class ServeEngine:
         chunk_lens[:b] = plan.chunk_lens
         self._shapes.add(("mixed", tables.shape, cb))
         return self._run_step(plan, paged_prefill_chunk,
-                              (tables, tokens, positions, chunk_lens), b)
+                              self._chunk_inputs(tables, tokens, positions,
+                                                 chunk_lens), b)
+
+    def _chunk_inputs(self, tables, tokens, positions, chunk_lens):
+        """``paged_prefill_chunk``'s inputs with the indices it would
+        otherwise derive on the device through host syncs: the (row,
+        column) of each valid token and, for int8 pools, the sorted
+        distinct blocks they land in (``torch.unique``'s order)."""
+        cols = tokens.shape[1]
+        valid = np.arange(cols)[None, :] < chunk_lens[:, None]
+        vb, vc = np.nonzero(valid)
+        dest = None
+        if self.kv_dtype == "int8":
+            vpos = positions[vb, vc]
+            slot = np.minimum(vpos // self.block_size, tables.shape[1] - 1)
+            dest = np.unique(tables[vb, slot])
+        return (tables, tokens, positions, chunk_lens, vb, vc, dest)
 
     # ------------------------------------------------------------- drain
     def drain(self, tid: int) -> int:

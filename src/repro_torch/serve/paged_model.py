@@ -157,7 +157,8 @@ def paged_decode_step(cfg, params, pools, tables, lengths, tokens, positions):
 
 
 def paged_prefill_chunk(cfg, params, pools, tables, tokens, positions,
-                        chunk_lens=None):
+                        chunk_lens=None, valid_rows=None, valid_cols=None,
+                        dest_blocks=None):
     """Run a C-token prompt CHUNK against already-materialized pages.
 
     The chunk's K/V rows scatter into the pool blocks the table names
@@ -168,6 +169,12 @@ def paged_prefill_chunk(cfg, params, pools, tables, tokens, positions,
     tables (B, nblk) i32; tokens/positions (B, C) i32 (absolute positions);
     chunk_lens (B,) i32 — valid tokens per row (None = all C; padded
     columns scatter nothing and their outputs are never read).
+    valid_rows/valid_cols (M,) — the (row, column) of every valid token,
+    row-major, as ``(arange(C) < chunk_lens[:, None]).nonzero()`` gives
+    them; dest_blocks — for int8 pools, the sorted distinct blocks those
+    tokens land in.  A caller that holds them on the host (the engine)
+    passes them in, and the step makes no host sync; left None, they are
+    derived here, at the cost of one sync each.
     Returns (logits of each row's LAST VALID token (B, V) f32, pools) — the
     pools written in place.
     """
@@ -180,19 +187,26 @@ def paged_prefill_chunk(cfg, params, pools, tables, tokens, positions,
     g = h // kh
     if chunk_lens is None:
         chunk_lens = torch.full((b,), c, dtype=torch.int32, device=dev)
-    valid = torch.arange(c, device=dev)[None, :] < chunk_lens[:, None]
     # destination of each VALID chunk token.  The reference drops padded
     # columns with an out-of-range sentinel and mode="drop"; an index that
     # far out of range is a device-side assert in torch, so the padded
-    # columns are left out of the scatter instead.  One nonzero() per step
-    # (it syncs with the host), shared by every layer.
-    vb, vc = valid.nonzero(as_tuple=True)
+    # columns are left out of the scatter instead.  The indices are shared
+    # by every layer; derived here, nonzero() syncs with the host.
+    if valid_rows is None:
+        valid = torch.arange(c, device=dev)[None, :] < chunk_lens[:, None]
+        vb, vc = valid.nonzero(as_tuple=True)
+    else:
+        vb, vc = valid_rows.long(), valid_cols.long()
     vpos = positions[vb, vc]
     blk = tables[vb, torch.clamp(vpos // bs, max=nblk - 1).long()].long()
     off = (vpos % bs).long()
     # int8 pools re-code each destination block once; the blocks are the
-    # same for every layer, so one torch.unique (another host sync) serves
-    dest = torch.unique(blk) if "k_scale" in pools else None
+    # same for every layer, so one set serves (torch.unique, derived here,
+    # is another host sync)
+    dest = None
+    if "k_scale" in pools:
+        dest = (torch.unique(blk) if dest_blocks is None
+                else dest_blocks.long())
     # per-request LIVE table slots: the chunk's last valid token sits in the
     # deepest block any of its queries can see (padded columns clamp to the
     # row's last valid position, so they derive the same bound)

@@ -6,7 +6,7 @@ and the algebra they compute:
 - the variant choosers of ``kernels.paged_attention`` and
   ``kernels.flash_attention`` (which kernel each shape takes);
 - the split plan of the split-KV decode walk (its boundaries depend on the
-  table width and bs, never on ``num_live_blocks``);
+  table width, bs and D, never on ``num_live_blocks``);
 - the plain models in ``kernels.ref`` of the split-KV walk with its
   combine, and of the tensor-core tile's int8 scale folding, held against
   ``repro.kernels.paged_attention.paged_attention_chunk`` in interpret
@@ -62,6 +62,19 @@ BF16, F32, F16, I8 = torch.bfloat16, torch.float32, torch.float16, torch.int8
     (BF16, BF16, 256, 1, 96, 16, "cuda_core"),  # no tile built at D 96
     (BF16, BF16, 1, 1, 72, 16, "cuda_core"),  # rows not whole 16-byte chunks
     (BF16, BF16, 1, 1, 80, 256, "cuda_core"),  # a page wider than a split
+    (BF16, BF16, 1, 1, 256, 16, "split"),     # gemma-7b decode
+    (BF16, I8, 1, 1, 256, 16, "split"),
+    (F32, F32, 1, 1, 256, 16, "split"),       # 64-key splits
+    (F32, F32, 1, 1, 256, 128, "cuda_core"),  # a page wider than those
+    (BF16, BF16, 1, 1, 256, 128, "cuda_core"),  # in every pool type
+    (BF16, I8, 1, 1, 256, 64, "split"),
+    (BF16, BF16, 256, 1, 256, 16, "tile"),    # gemma-7b mixed chunk
+    (BF16, I8, 256, 1, 256, 16, "tile"),
+    (F32, F32, 256, 1, 256, 16, "cuda_core"),
+    (BF16, F16, 256, 1, 256, 16, "cuda_core"),
+    (BF16, BF16, 1, 12, 128, 16, "split"),    # starcoder2-3b decode
+    (BF16, BF16, 1, 9, 128, 16, "split"),     # starcoder2-7b decode
+    (BF16, BF16, 256, 9, 128, 16, "tile"),
 ])
 def test_paged_variant_chooser(q_dtype, kv_dtype, c, g, d, bs, want):
     assert pa.choose_variant(q_dtype, kv_dtype, c * g, d, bs) == want
@@ -70,6 +83,7 @@ def test_paged_variant_chooser(q_dtype, kv_dtype, c, g, d, bs, want):
 @pytest.mark.parametrize("dtype,d,want", [
     (BF16, 80, "tile"), (BF16, 128, "tile"), (BF16, 64, "tile"),
     (F32, 80, "cuda_core"), (BF16, 96, "cuda_core"), (BF16, 32, "cuda_core"),
+    (BF16, 256, "tile"), (F32, 256, "cuda_core"), (BF16, 192, "cuda_core"),
 ])
 def test_flash_variant_chooser(dtype, d, want):
     assert fa.choose_variant(dtype, d) == want
@@ -85,9 +99,36 @@ def test_flash_variant_chooser(dtype, d, want):
     (7, 128, (1, 7)),
 ])
 def test_split_plan(nblk, bs, want):
-    pps, nsplit = pa.split_plan(nblk, bs)
+    pps, nsplit = pa.split_plan(nblk, bs, 128)
     assert (pps, nsplit) == want
     assert pps * bs <= pa.SPLIT_KEYS
+    assert (nsplit - 1) * pps < nblk <= nsplit * pps
+
+
+@pytest.mark.parametrize("d,want", [(64, 128), (80, 128), (128, 128),
+                                    (256, 64)])
+def test_split_keys(d, want):
+    """128 keys a split wherever f32 K and V fit in shared memory beside
+    the split's f32 rows, 64 at D 256; every pool type fits the cut."""
+    keys = pa.split_keys(d)
+    assert keys == want
+    for dtype in (F32, BF16, F16, I8):
+        assert pa._split_smem(keys, d, dtype.itemsize) <= pa.MAX_SMEM_BYTES
+    if keys < pa.SPLIT_KEYS:
+        assert pa._split_smem(2 * keys, d, 4) > pa.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("nblk,bs,d,want", [
+    (128, 16, 256, (4, 32)),   # gemma-7b, the engine's bucket
+    (128, 16, 128, (8, 16)),
+    (5, 64, 256, (1, 5)),
+    (9, 8, 256, (8, 2)),
+])
+def test_split_plan_keys(nblk, bs, d, want):
+    """The plan cuts at ``split_keys(d)`` keys: 64 at D 256."""
+    pps, nsplit = pa.split_plan(nblk, bs, d)
+    assert (pps, nsplit) == want
+    assert pps * bs <= pa.split_keys(d)
     assert (nsplit - 1) * pps < nblk <= nsplit * pps
 
 
@@ -95,8 +136,9 @@ def test_cuda_core_limit_raises():
     with pytest.raises(ValueError, match="shared memory"):
         pa._check_limits("cuda_core", 128, 256)
     with pytest.raises(ValueError, match="head_dim"):
-        pa._check_limits("tile", 256, 16)
+        pa._check_limits("tile", 272, 16)
     pa._check_limits("cuda_core", 80, 16)
+    pa._check_limits("cuda_core", 256, 16)  # gemma-7b, 32 KB of staging
 
 
 # ============================================== shared seeded inputs
@@ -137,8 +179,14 @@ def _pallas(case, q=None):
         j(case["vsc"]), interpret=True))
 
 
+def _plan(t):
+    """The kernel's split plan for these operands."""
+    return pa.split_plan(t["tables"].shape[1], t["k"].shape[1],
+                         t["q"].shape[-1])
+
+
 def _split(t, live="live", **kw):
-    pps, nsplit = pa.split_plan(t["tables"].shape[1], t["k"].shape[1])
+    pps, nsplit = _plan(t)
     return paged_attention_split_ref(
         t["q"], t["k"], t["v"], t["tables"], t["qpos"],
         None if live is None else t[live], pages_per_split=pps,
@@ -151,6 +199,8 @@ SPLIT_SHAPES = [
     (3, 2, 2, 4, 64, 8, 40),     # GQA, C = 2: 8 rows, 3 splits
     (2, 1, 2, 12, 128, 4, 70),   # G = 12 (starcoder2-3b), 3 splits
     (2, 15, 2, 1, 64, 8, 36),    # C = 15, contexts end mid-page
+    (2, 1, 4, 1, 256, 16, 20),   # gemma-7b head dim: 64-key splits
+    (2, 3, 2, 4, 256, 8, 24),    # D 256, GQA, 12 rows
 ]
 
 
@@ -164,7 +214,7 @@ def test_split_walk_matches_reference(shape):
     np.testing.assert_allclose(got, _pallas(case), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("shape", SPLIT_SHAPES[:2])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES[:2] + SPLIT_SHAPES[4:])
 def test_split_walk_int8_matches_reference(shape):
     case = _case(*shape, seed=sum(shape) + 1, int8=True)
     got = _split(_torch(case)).numpy()
@@ -177,7 +227,7 @@ def test_empty_splits_are_bitwise_noops(shape):
     splits into the combine changes no bit."""
     case = _case(*shape, seed=sum(shape) + 2)
     t = _torch(case)
-    pps, nsplit = pa.split_plan(t["tables"].shape[1], t["k"].shape[1])
+    pps, nsplit = _plan(t)
     m, l, acc = split_kv_partials_ref(
         t["q"], t["k"], t["v"], t["tables"], t["qpos"], t["live"],
         pages_per_split=pps, n_splits=nsplit)
@@ -211,7 +261,7 @@ def test_split_boundaries_ignore_num_live():
     split below the smaller bound has the same partials, bit for bit."""
     case = _case(2, 1, 2, 4, 64, 8, 40, seed=11)
     t = _torch(case)
-    pps, nsplit = pa.split_plan(40, 8)
+    pps, nsplit = pa.split_plan(40, 8, 64)
     t["qpos"] = torch.tensor([[300], [250]], dtype=torch.int32)
     a = split_kv_partials_ref(t["q"], t["k"], t["v"], t["tables"], t["qpos"],
                               torch.tensor([38, 32], dtype=torch.int32),
@@ -263,6 +313,7 @@ TILE_SHAPES = [
     (2, 20, 4, 1, 80, 16, 6),    # stablelm-3b head dim, chunk mid-page
     (2, 8, 2, 4, 64, 8, 9),      # GQA: 32 rows
     (1, 17, 2, 2, 128, 16, 4),   # head dim 128
+    (2, 20, 2, 1, 256, 16, 6),   # head dim 256 (gemma-7b), 32-key tiles
 ]
 
 
@@ -311,3 +362,48 @@ def test_tile_model_bounded_equals_unbounded_and_skips_dead_pages():
     got = paged_attention_tile_ref(*args(t, t["live"]), k_scales=ksc,
                                    v_scales=vsc)
     assert torch.equal(got, want) and torch.isfinite(got).all()
+
+
+def test_tile_model_d256_bounded_equals_unbounded_and_skips_dead_pages():
+    """At D 256, bf16 and int8 pages: the bounded and the unbounded walk
+    agree bitwise, and NaN in the pages and scales of dead slots reaches
+    nothing."""
+    for int8 in (False, True):
+        case = _case(2, 20, 2, 1, 256, 16, 6, seed=29, int8=int8)
+        t = _torch(case)
+        if not int8:
+            t["k"], t["v"] = t["k"].to(BF16), t["v"].to(BF16)
+        args = lambda tt, live: (  # noqa: E731
+            tt["q"].to(BF16), tt["k"], tt["v"], tt["tables"], tt["qpos"],
+            live)
+        kw = dict(k_scales=t["ksc"], v_scales=t["vsc"])
+        want = paged_attention_tile_ref(*args(t, t["live"]), **kw)
+        full = torch.full_like(t["live"], 6)
+        assert torch.equal(want,
+                           paged_attention_tile_ref(*args(t, full), **kw))
+        assert torch.equal(want, paged_attention_tile_ref(*args(t, None),
+                                                          **kw))
+        dead = torch.arange(6)[None, :] >= t["live"][:, None].long()
+        ids = t["tables"][dead].long()
+        k, v = t["k"].clone(), t["v"].clone()
+        if int8:
+            kw = dict(k_scales=t["ksc"].clone(), v_scales=t["vsc"].clone())
+            kw["k_scales"][ids] = math.nan
+            kw["v_scales"][ids] = math.nan
+        else:
+            k[ids] = math.nan
+            v[ids] = math.nan
+        got = paged_attention_tile_ref(*args(dict(t, k=k, v=v), t["live"]),
+                                       **kw)
+        assert torch.equal(got, want) and torch.isfinite(got).all()
+
+
+def test_split_int8_fused_equals_materialized_at_d256():
+    """At D 256 too: the int8 walk cuts the same splits as the f32 walk
+    over the dequantized pools, and agrees with it bitwise."""
+    case = _case(2, 1, 4, 1, 256, 16, 20, seed=31, int8=True)
+    t = _torch(case)
+    mat = dict(t, k=dequantize_pool(t["k"], t["ksc"]),
+               v=dequantize_pool(t["v"], t["vsc"]), ksc=None, vsc=None)
+    assert _plan(t) == _plan(mat)
+    assert torch.equal(_split(t), _split(mat))

@@ -19,7 +19,9 @@ walk) is swept over C, G, D and bs, and the split-KV walk and the tile
 are also held against the plain models of their own algebra in ``ref``.
 The split-KV walk keeps scores, P and partials in f32, so its bf16 output
 is held to one bf16 rounding step (rtol 2**-7) and, in f32, to its model
-within 1e-5.
+within 1e-5.  Head dim 256 (gemma-7b) is swept in every variant over every
+pool type, and flash at D 256 in both its variants.  The engine's dispatch
+is run with the CUDA sync debug mode at "error" while its lock is held.
 """
 
 import math
@@ -142,6 +144,8 @@ INT8_SHAPES = [
     (3, 40, 32, 1, 80, 16, 8),    # stablelm-3b chunk, ragged
     (3, 4, 2, 2, 64, 8, 5),       # test_kernels.py:368
     (1, 8, 2, 1, 128, 4, 7),      # head_dim 128
+    (8, 1, 16, 1, 256, 16, 16),   # gemma-7b decode
+    (3, 40, 16, 1, 256, 16, 8),   # gemma-7b chunk, ragged
 ]
 
 
@@ -197,6 +201,20 @@ def test_int8_dead_slot_scales_never_read(dev):
 
 
 @pytest.mark.parametrize("pool_dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 40])
+def test_half_pools_under_f32_query_d256(dev, pool_dtype, c):
+    """At D 256, decode (the split-KV walk) and a chunk (the CUDA-core
+    walk): half pools equal the f32 pools made from them, bitwise."""
+    q, k, v, tables, qpos, live = _case(3, c, 16, 1, 256, 16, 8,
+                                        torch.float32, dev, seed=c + 256)
+    kp, vp = k.to(pool_dtype), v.to(pool_dtype)
+    got = paged_attention.paged_attention_chunk(q, kp, vp, tables, qpos, live)
+    f32 = paged_attention.paged_attention_chunk(q, kp.float(), vp.float(),
+                                                tables, qpos, live)
+    assert torch.equal(got, f32)
+
+
+@pytest.mark.parametrize("pool_dtype", [torch.float16, torch.bfloat16])
 def test_half_pools_under_f32_query(dev, pool_dtype):
     """Pools of another type than the query: converted to f32 at staging,
     so the kernel equals the f32 kernel on the pools made f32."""
@@ -222,6 +240,8 @@ def test_half_pools_under_f32_query(dev, pool_dtype):
     (2, 128, 2, 2, 64, False),    # non-causal (:495)
     (1, 300, 32, 32, 80, True),   # stablelm-3b heads, ragged T
     (1, 200, 24, 2, 128, True),   # starcoder2-3b heads, ragged T
+    (1, 300, 16, 16, 256, True),  # gemma-7b heads, ragged T
+    (2, 130, 8, 2, 256, False),   # D 256, GQA, non-causal
 ])
 def test_flash_kernel_matches_plain(dev, dtype, tol, b, t, h, kh, d, causal):
     rng = np.random.default_rng(t + h)
@@ -242,7 +262,8 @@ def _variant_case(b, c, kh, g, d, bs, nblk, pool, dev, seed):
     """Operands over ``pool`` pages ("bf16", "int8", "f32") with a bf16
     query (f32 for f32 pages), and the variant the wrapper picks."""
     qdt = torch.float32 if pool == "f32" else torch.bfloat16
-    kvdt = {"bf16": torch.bfloat16, "f32": torch.float32}.get(pool)
+    kvdt = {"bf16": torch.bfloat16, "f32": torch.float32,
+            "f16": torch.float16}.get(pool)
     q, k, v, tables, qpos, live = _case(b, c, kh, g, d, bs, nblk, qdt, dev,
                                         seed)
     ksc = vsc = None
@@ -270,7 +291,8 @@ def _check_model(args, variant, nblk):
     q, k, v, tables, qpos, live, ksc, vsc = args
     got = paged_attention.paged_attention_chunk(*args)
     if variant == "split":
-        pps, nsplit = paged_attention.split_plan(nblk, k.shape[1])
+        pps, nsplit = paged_attention.split_plan(
+            nblk, k.shape[1], q.shape[-1])
         model = paged_attention_split_ref(
             q, k, v, tables, qpos, live, pages_per_split=pps,
             n_splits=nsplit, k_scales=ksc, v_scales=vsc)
@@ -358,6 +380,47 @@ def test_variants_all_masked_row_is_zero(dev, pool, c):
     assert torch.isfinite(got).all()
 
 
+# gemma-7b width (KH 16, G 1, D 256, bs 16): decode, short and long chunks
+@pytest.mark.parametrize("pool", ["bf16", "int8", "f32", "f16"])
+@pytest.mark.parametrize("c", [1, 2, 15, 16, 17, 64, 256])
+def test_variants_gemma_width(dev, pool, c):
+    nblk = (c + 200) // 16 + 2
+    args, variant = _variant_case(2, c, 16, 1, 256, 16, nblk, pool, dev,
+                                  seed=c + 7 * len(pool))
+    assert variant == ("split" if c < 16 else
+                       "tile" if pool in ("bf16", "int8") else "cuda_core")
+    _check_variant(args, variant, nblk, dev)
+
+
+# D 256 under GQA and other block sizes: splits of 64 keys in every pool
+# type, so a 64-token page is one page a split
+@pytest.mark.parametrize("pool", ["bf16", "int8", "f32", "f16"])
+@pytest.mark.parametrize("c", [1, 20])
+@pytest.mark.parametrize("g,bs", [(1, 8), (4, 16), (12, 16), (2, 64)])
+def test_variants_d256_gqa_block_size(dev, pool, c, g, bs):
+    nblk = (c + 300) // bs + 2
+    args, variant = _variant_case(2, c, 2, g, 256, bs, nblk, pool, dev,
+                                  seed=c * g + bs + 256)
+    want = ("split" if c * g < 16 else
+            "tile" if pool in ("bf16", "int8") else "cuda_core")
+    assert variant == want
+    _check_variant(args, variant, nblk, dev)
+
+
+@pytest.mark.parametrize("pool,c", [("bf16", 1), ("int8", 1), ("f32", 1),
+                                    ("bf16", 40), ("int8", 40), ("f32", 40)])
+def test_variants_d256_all_masked_row_is_zero(dev, pool, c):
+    """A request with no live slot (live 0) writes 0 at D 256 too."""
+    args, variant = _variant_case(2, c, 4, 1, 256, 16, 6, pool, dev,
+                                  seed=c + 1)
+    q, k, v, tables, qpos, _, ksc, vsc = args
+    live = torch.tensor([0, 6], dtype=torch.int32, device=dev)
+    got = paged_attention.paged_attention_chunk(q, k, v, tables, qpos, live,
+                                                ksc, vsc)
+    assert not got[0].any()
+    assert torch.isfinite(got).all()
+
+
 def test_split_decode_of_a_wide_table_equals_narrow(dev):
     """The split boundaries follow the table width only: the same contexts
     through a table of 128 slots and one of 16 agree within fp32."""
@@ -375,6 +438,8 @@ def test_split_decode_of_a_wide_table_equals_narrow(dev):
     (1, 4096, 32, 32, 80),    # stablelm-3b prefill
     (1, 4096, 24, 2, 128),    # starcoder2-3b prefill (GQA 12)
     (2, 300, 8, 1, 64),       # MQA, ragged T
+    (1, 4096, 16, 16, 256),   # gemma-7b prefill
+    (1, 300, 32, 8, 256),     # D 256, GQA 4, ragged T
 ])
 def test_flash_tile_bf16_causal(dev, b, t, h, kh, d):
     rng = np.random.default_rng(t + h + d)
@@ -730,3 +795,57 @@ def test_int8_scale_pools_are_per_shard(dev):
     assert engine.pool.unreclaimed() == 0
     for pools in engine._shard_pools:
         assert pools["k_scale"].max().item() > 0, "a shard's scales unused"
+
+
+# ------------------------------------------ no host sync under the lock
+class _NoSyncLock:
+    """The engine's dispatch lock, with the CUDA sync debug mode at
+    "error" while it is held: a host sync under it raises."""
+
+    def __init__(self, lock):
+        self._lock = lock
+
+    def __enter__(self):
+        self._lock.acquire()
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        self._lock.release()
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_dispatch_makes_no_host_sync(dev, kv_dtype):
+    """Every step of a bf16 engine, prefill and mixed ones included, runs
+    under its dispatch lock without a host sync, with bf16 and with int8
+    pages, and emits the tokens of the same engine run unwatched."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_smoke_config("stablelm-3b").scaled(dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    outs = []
+    for watched in (False, True):
+        engine = ServeEngine(cfg, params, n_blocks=48, block_size=4,
+                             max_batch=4, chunk_size=8, kv_dtype=kv_dtype,
+                             era_freq=1, cleanup_freq=1, device=dev)
+        kinds = []
+        real = engine._run_step
+
+        def spy(plan, *args, _real=real, _kinds=kinds):
+            _kinds.append(plan.kind)
+            return _real(plan, *args)
+
+        engine._run_step = spy
+        if watched:
+            engine._dispatch_lock = _NoSyncLock(engine._dispatch_lock)
+        tid = engine.pool.register_thread()
+        reqs = [engine.submit(p * 3, 6) for p in SHARD_PROMPTS]
+        stats = engine.run(tid)
+        assert stats["completed"] == len(reqs)
+        assert engine.pool.unreclaimed() == 0
+        assert {"prefill", "mixed", "decode"} <= set(kinds), kinds
+        outs.append([r.generated for r in reqs])
+    assert outs[0] == outs[1]
