@@ -24,7 +24,14 @@ Phases, each printing its own line; any failure exits non-zero:
    gemma-7b's head dim 256 (KH 16, G 1) over bf16 and int8 pages and with
    an f32 query, and at starcoder2-3b's grouped heads (KH 2, G 12, D 128);
    dense flash attention at the stablelm-3b, starcoder2-3b and gemma-7b
-   prefill shapes.  The split-KV walk
+   prefill shapes, and at phase 7's: mixtral-8x7b (GQA 32 / 8, D 128) at
+   B 4 T 1024 and B 1 T 4096, recurrentgemma-2b (MQA 10 / 1, D 256) at
+   B 4 T 1024 and B 1 T 2048, whisper-small's encoder (12 heads of 64,
+   non-causal, B 4 T 1500, held to limits from its own magnitudes, which
+   two planted faults of its ragged last tile must fail); the f32
+   CUDA-core walk at phase 7's f32 group shapes (mixtral-8x7b and
+   recurrentgemma-2b at B 2 T 64, whisper-small's encoder at B 2
+   T 1500).  The split-KV walk
    and the tile are also held against the plain models of their own
    algebra (``ref.paged_attention_split_ref``, ``paged_attention_tile_ref``).
    ``ms`` is the time per eager call (host launch cost included where it
@@ -83,13 +90,39 @@ Phases, each printing its own line; any failure exits non-zero:
    shard with phase 3's engine and limits, decode plans on the split-KV
    walk and mixed and prefill plans on the tile, each call's variant held
    against ``choose_variant`` (gemma-7b also with int8 pages); output
-   tokens/s and ms per step by plan kind printed; then phase 5's model
-   step at the arch's full width and 2 layers.
+   tokens/s and ms per step by plan kind printed; then the model zoo's
+   prefill of 4096 tokens on the same weights (one flash kernel call per
+   layer, none plain; stablelm-3b's at the end of phase 4), then phase
+   5's model step at the arch's full width and 2 layers.
+7. The model zoo (``repro_torch.models``) at full width, one arch
+   resident at a time, seeded random weights: deepseek-v2-236b (8 of 60
+   layers), mixtral-8x7b (24 of 32), recurrentgemma-2b, xlstm-350m and
+   whisper-small (full depth).  Per arch: (a) one group of the block
+   pattern in f32 (whisper: 2 decoder and 2 encoder layers; MoE at the
+   drop-free capacity of the smoke configs), prefill of 64 tokens at B 2
+   and two ``decode_step``s against ``forward`` within 2e-3, the flash
+   routes of the run held to the table and every kernel launch on the
+   CUDA-core walk (deepseek
+   also: the prefill's latents copied into ``init_mla_pools`` pages of 16
+   through permuted tables, 8 ``paged_mla_decode_step``s against
+   ``decode_step`` within 2e-3); (b) in bf16 at the depth above, the
+   parameter count, the first layer's routed experts (MoE archs) at the
+   prefill and decode shapes against an f32-product plain version
+   (``moe_plain``), a prefill of B 4 seeded prompts of 1024 tokens
+   (deepseek 512; whisper 256 over 1500 frames) and 32 greedy
+   ``decode_step``s: finite logits and the flash routes of the table in
+   ``models.attention`` exactly (``FLASH_ROUTES`` zeroed just before,
+   read just after, the kernel's launches equal to its route's calls);
+   prefill ms, decode ms per step, tokens/s and peak memory printed;
+   deepseek's paged greedy token match printed; (c) mixtral and
+   recurrentgemma: a prefill at B 1 of exactly the window (kernel) and
+   of the window + 512 (the plain banded route), timed.
 
 The line before the last is the ``kernels`` JSON line (each row with
 ``launches_runtime``, its launches in 4c's 2-worker run; the rows of
 another arch name it in ``arch`` and take ``launches`` from its phase 6
-window); the last line is
+window; flash attention's rows take theirs from the model zoo's prefill of
+their arch, its f32 rows from phase 7's f32 group); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -538,11 +571,64 @@ def check_attention_int8(b, c, nblk, dev, engine_mixed=False,
     return row
 
 
-def check_flash(b, t, h, kh, d, dtype, causal, gen, dev, tol, tag):
+#: bf16 flash at a non-causal shape with small outputs (whisper-small's
+#: encoder: |out| about 0.04 over 1500 keys) is held to its own
+#: magnitudes: elementwise within rtol 1e-2 plus 4 bf16 ulps of max |want|,
+#: and a relative RMS error (||got - want|| / ||want||) within this.  The
+#: tile's rounding of P gives about 2.5e-3; the ragged last tile's pad
+#: keys left unmasked scale every output by about 1.5% (1.4e-2), which
+#: the elementwise limit alone does not see
+FLASH_REL_RMS = 7e-3
+
+
+def flash_scaled_close(got, want, rel_rms=FLASH_REL_RMS) -> tuple:
+    """(within the limits above, detail) of got against want."""
+    got, want = got.float(), want.float()
+    ulp = 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+    close = torch.allclose(got, want, rtol=1e-2, atol=4 * ulp)
+    rms = ((got - want).norm() / want.norm()).item()
+    return (close and rms <= rel_rms,
+            f"rel_rms={rms:.3e} (limit {rel_rms}), atol 4 ulp = {4 * ulp:.3e}"
+            f" + rtol 1e-2: {close}")
+
+
+def _attend(q, k, v):
+    """Non-causal GQA attention in f32, rounded to q's dtype (for the
+    planted faults, whose keys differ from the queries in number)."""
+    g = q.shape[2] // k.shape[2]
+    k, v = (x.float().repeat_interleave(g, 2) for x in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) / math.sqrt(q.shape[-1])
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1),
+                        v).to(q.dtype)
+
+
+def flash_tail_faults(q, k, v, want, name) -> None:
+    """The ragged last K/V tile broken on purpose, from the plain version:
+    its pad keys unmasked (zero keys and values up to the tile multiple)
+    and the partial tile dropped.  Each must fail ``flash_scaled_close``,
+    or the check could not see a fault of the tile."""
+    t = k.shape[1]
+    keys = 64 if k.shape[-1] <= 128 else 32  # the tile's keys per K/V tile
+    cut = t - t % keys
+    assert cut < t, "no partial tile at this T"
+    z = k.new_zeros((k.shape[0], keys - t % keys) + k.shape[2:])
+    faults = {"unmasked pad keys": _attend(q, torch.cat([k, z], 1),
+                                           torch.cat([v, z], 1)),
+              "dropped tail tile": _attend(q, k[:, :cut], v[:, :cut])}
+    seen = {n: not flash_scaled_close(f, want)[0] for n, f in faults.items()}
+    phase(f"{name}: planted faults of the last tile fail the check",
+          all(seen.values()),
+          "; ".join(f"{n}: {flash_scaled_close(f, want)[1]}"
+                    for n, f in faults.items()))
+
+
+def check_flash(b, t, h, kh, d, dtype, causal, gen, dev, tol, tag,
+                scaled=False):
     """Dense flash attention against its plain version, timed beside
     ``scaled_dot_product_attention(enable_gqa=True)`` and its bound: 4 * D
     flops per visible (query, key) pair and head at the input type's peak,
-    or q, k, v and out once over HBM."""
+    or q, k, v and out once over HBM.  ``scaled``: held by
+    ``flash_scaled_close`` instead of ``tol``, with planted tail faults."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_ref
@@ -554,14 +640,20 @@ def check_flash(b, t, h, kh, d, dtype, causal, gen, dev, tol, tag):
     want = flash_attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    close = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    if scaled:
+        close, limit = flash_scaled_close(got, want)
+    else:
+        close = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+        limit = f"tol {tol}"
     finite = bool(torch.isfinite(got).all())
-    del want
     name = (f"flash_attention {tag}: {str(dtype).split('.')[-1]} "
             f"{'causal' if causal else 'non-causal'} B={b} T={t} H={h} "
             f"KH={kh} D={d}")
     phase(f"{name} vs plain", close and finite and got.shape == q.shape,
-          f"max_abs_err={err:.3e} (tol {tol}), finite={finite}")
+          f"max_abs_err={err:.3e} ({limit}), finite={finite}")
+    if scaled:
+        flash_tail_faults(q, k, v, want, name)
+    del want
     saved = _save_counts()
     kern = lambda: fa.flash_attention(q, k, v, causal=causal)  # noqa: E731
     ms = time_ms(kern, reps=10, warmup=2)
@@ -725,9 +817,11 @@ def serve_full_width(dev):
           f"{token_match(bf16['tokens'], int8['tokens'])}", flush=True)
     schemes = serve_schemes(cfg, params, dev)
     runtime = serve_runtime_phase(cfg, params, dev, bf16, int8)
+    zoo = guarded("model zoo stablelm-3b prefill", zoo_dense_prefill, cfg,
+                  params, dev)
     del params
     torch.cuda.empty_cache()
-    return bf16["launches"], int8["launches"], schemes, runtime
+    return bf16["launches"], int8["launches"], schemes, runtime, zoo
 
 
 def token_match(want, got) -> str:
@@ -1827,10 +1921,433 @@ def serve_archs(dev) -> dict:
                                serve_arch_window, cfg, params, dev, kv)
             if launches is not None:
                 out[(arch, kv or "bf16")] = launches
+        zoo = guarded(f"6 {arch} model-zoo prefill", zoo_dense_prefill, cfg,
+                      params, dev)
+        if zoo is not None:
+            out[(arch, "zoo")] = zoo
         del params
         torch.cuda.empty_cache()
         guarded(f"6 {arch} step", step_matches_cpu, dev, arch)
         print(f"  phase 6 {arch}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return out
+
+
+# ------------------------------------------------------------ phase 7: zoo
+#: phase 7's archs and their depth on the card (None: the full depth): the
+#: deepest stack that leaves at least 10 GiB of the 80 free.  At 4 and 16
+#: layers the bf16 runs peaked at 36.07 and 48.14 GiB (H100 80GB HBM3,
+#: 700 W), weights included, so deepseek-v2-236b keeps 8 of its 60 layers
+#: (7.4 GiB each: about 66 GiB) and mixtral-8x7b 24 of 32 (2.7 GiB each:
+#: about 70 GiB)
+ZOO_DEPTH = {"deepseek-v2-236b": 8, "mixtral-8x7b": 24,
+             "recurrentgemma-2b": None, "xlstm-350m": None,
+             "whisper-small": None}
+#: the f32 consistency run's depth: one group of the block pattern
+#: (whisper: 2 decoder and 2 encoder layers)
+ZOO_F32_LAYERS = {"deepseek-v2-236b": 2, "mixtral-8x7b": 2,
+                  "recurrentgemma-2b": 13, "xlstm-350m": 8,
+                  "whisper-small": 2}
+#: bf16 prompt lengths (default 1024; whisper's are decoder tokens over
+#: 1500 frames), at batch ZOO_BATCH, then ZOO_NEW greedy decode steps
+ZOO_PROMPT = {"deepseek-v2-236b": 512, "whisper-small": 256}
+ZOO_BATCH, ZOO_NEW = 4, 32
+#: each arch's parameters at full width and depth, total and active
+#: (tests/test_torch_models.py holds ``count_params`` to the reference's)
+ZOO_PARAMS = {"deepseek-v2-236b": (239_375_569_920, 21_376_619_520),
+              "mixtral-8x7b": (46_702_792_704, 12_879_925_248),
+              "recurrentgemma-2b": (2_894_574_080, 2_894_574_080),
+              "xlstm-350m": (476_862_632, 476_862_632),
+              "whisper-small": (285_974_016, 285_974_016)}
+#: paged latent decode: block size and steps
+MLA_BLOCK, MLA_STEPS = 16, 8
+
+
+def zoo_counters():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+
+    return {"kernel": attention.FLASH_ROUTES["kernel"],
+            "plain": attention.FLASH_ROUTES["plain"],
+            "launches": fa.LAUNCHES}
+
+
+def zoo_zero() -> None:
+    """Zero the flash routes and the flash kernel's launch counts."""
+    from repro_torch.kernels import flash_attention as fa
+
+    torch.cuda.synchronize()
+    for ctr in (*zoo_counters().values(), *fa.VARIANT_LAUNCHES.values()):
+        ctr.n = 0
+
+
+def zoo_read() -> dict:
+    torch.cuda.synchronize()
+    return {k: ctr.n for k, ctr in zoo_counters().items()}
+
+
+def expected_routes(cfg, t: int, decode: bool = False) -> tuple:
+    """(kernel, plain) flash calls of one prefill of t tokens (or of one
+    decode step) on the card: the route table of ``models.attention``."""
+    n_attn = cfg.n_groups * sum(k in ("attn", "local_attn", "swa")
+                                for k in cfg.block_pattern)
+    if cfg.is_encoder_decoder:  # cross-attention takes the plain route
+        return ((0, cfg.n_layers) if decode else
+                (cfg.n_encoder_layers + cfg.n_layers, cfg.n_layers))
+    if decode:
+        return 0, 0
+    windowed = any(k in ("local_attn", "swa") for k in cfg.block_pattern)
+    if cfg.use_mla or (windowed and t > cfg.window):
+        return 0, n_attn
+    return n_attn, 0
+
+
+def _zoo_inputs(cfg, b, t, gen, dev):
+    toks = torch.randint(0, cfg.vocab_size, (b, t), generator=gen,
+                         device=dev, dtype=torch.int32)
+    extra = {}
+    if cfg.frontend == "frames":
+        extra["frames"] = 0.02 * torch.randn(
+            (b, cfg.encoder_ctx, cfg.d_model), generator=gen, device=dev)
+    return toks, extra
+
+
+def _routes_ok(got, want) -> bool:
+    return ((got["kernel"], got["plain"]) == tuple(want)
+            and got["launches"] == got["kernel"])
+
+
+def zoo_dense_prefill(cfg, params, dev) -> dict:
+    """The model zoo's prefill of a served dense arch at B 1 and T 4096 on
+    its resident bf16 weights: one flash kernel call per layer and none
+    on the plain route.  Returns the counts."""
+    from repro_torch.models import build_model
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    toks, _ = _zoo_inputs(cfg, 1, 4096, gen, dev)
+    zoo_zero()
+    t0 = time.perf_counter()
+    logits, _ = build_model(cfg).prefill(params, toks)
+    finite = bool(torch.isfinite(logits).all())
+    got = zoo_read()
+    wall = time.perf_counter() - t0
+    want = expected_routes(cfg, 4096)
+    phase(f"model zoo {cfg.name} prefill B 1 T 4096, flash routes",
+          finite and _routes_ok(got, want),
+          f"routes {got} (want kernel, plain = {want}), finite={finite}, "
+          f"{wall * 1e3:.1f} ms (host clock) on {gpu_name_and_limit()}")
+    return got
+
+
+def _mla_pages(cfg, cache, b, s, total, gen, dev):
+    """``init_mla_pools`` pages of MLA_BLOCK tokens holding every layer's
+    first s latent rows (c_kv ‖ k_rope) of ``cache``, written through
+    permuted, non-contiguous block tables sized for ``total`` tokens.
+    Returns (pools, tables)."""
+    from repro_torch.serve import init_mla_pools
+
+    assert s % MLA_BLOCK == 0
+    per = -(-total // MLA_BLOCK)
+    n_blocks = b * per + 8
+    pools = init_mla_pools(cfg, n_blocks, MLA_BLOCK, device=dev)
+    tables = torch.randperm(n_blocks, generator=gen, device=dev)[
+        :b * per].reshape(b, per).to(torch.int32)
+    c = cache["groups"]["b0_attn"]
+    rows = torch.cat([c["c_kv"][:, :, :s], c["k_rope"][:, :, :s]], -1)
+    full = tables[:, :s // MLA_BLOCK].long()
+    for l in range(rows.shape[0]):
+        pools["lat"][l][full] = rows[l].reshape(
+            b, s // MLA_BLOCK, MLA_BLOCK, -1).to(pools["lat"].dtype)
+    return pools, tables
+
+
+def zoo_f32(arch, dev) -> int:
+    """One group of the block pattern in f32 at full width: prefill of 64
+    tokens at B 2 and two decode_steps against forward (the identity and
+    tolerance of tests/test_arch_smoke.py:94-119).  MoE configs take the
+    drop-free capacity of the reference's smoke configs (capacity factor
+    E / k), since dropping depends on the co-batch.  For MLA, the prefill's
+    latents are copied into pages and MLA_STEPS paged_mla_decode_steps run
+    against decode_step on the same tokens.  Returns the flash kernel's
+    CUDA-core launches of the run (counts zeroed just before it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model, init_params
+    from repro_torch.serve import paged_mla_decode_step
+
+    cfg = get_config(arch)
+    over = dict(n_layers=ZOO_F32_LAYERS[arch], dtype=torch.float32)
+    if cfg.is_encoder_decoder:
+        over["n_encoder_layers"] = 2
+    if cfg.is_moe:
+        over["capacity_factor"] = cfg.n_experts / cfg.top_k
+    cfg = cfg.scaled(**over)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(cfg, gen, device=dev)
+    model = build_model(cfg)
+    b, s = 2, 64
+    steps = MLA_STEPS if cfg.use_mla else 2
+    toks, extra = _zoo_inputs(cfg, b, s + steps, gen, dev)
+    zoo_zero()
+    full = model.forward(params, toks[:, :s + 2], extra)
+    lg, cache = model.prefill(params, toks[:, :s], max_len=s + steps,
+                              extra=extra)
+    errs = [(lg - full[:, s - 1]).abs().max()]
+    finite = [torch.isfinite(full).all()]
+    if cfg.use_mla:
+        pools, tables = _mla_pages(cfg, cache, b, s, s + steps, gen, dev)
+    paged = []
+    for i in range(steps):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+        if cfg.use_mla:
+            lp, pools = paged_mla_decode_step(cfg, params, pools, tables,
+                                              pos + 1, toks[:, s + i], pos)
+        lg, cache = model.decode_step(params, cache, toks[:, s + i], pos)
+        if i < 2:
+            errs.append((lg - full[:, s + i]).abs().max())
+        if cfg.use_mla:
+            paged.append((lp - lg).abs().max())
+        finite.append(torch.isfinite(lg).all())
+    got = zoo_read()
+    variants = {n: c.n for n, c in fa.VARIANT_LAUNCHES.items()}
+    err = max(e.item() for e in errs)
+    fin = all(bool(f) for f in finite)
+    tol = 2e-3
+    layers = f"{cfg.n_layers} layers" + (
+        f" + {cfg.n_encoder_layers} encoder" if cfg.is_encoder_decoder
+        else "")
+    want = tuple(map(sum, zip(expected_routes(cfg, s + 2),
+                              expected_routes(cfg, s),
+                              *[expected_routes(cfg, s, True)] * steps)))
+    phase(f"7 {arch} f32 at full width ({layers}): prefill + 2 "
+          f"decode_steps vs forward", err <= tol and fin
+          and _routes_ok(got, want) and variants["tile"] == 0,
+          f"max_abs_err={err:.3e} (tol {tol}), finite={fin}; flash routes "
+          f"{got} (want {want}), by variant {variants}")
+    if cfg.use_mla:
+        perr = max(e.item() for e in paged)
+        phase(f"7 {arch} f32 paged latent decode ({MLA_STEPS} steps, block "
+              f"{MLA_BLOCK}, permuted tables) vs decode_step", perr <= tol,
+              f"max_abs_err={perr:.3e} (tol {tol})")
+    del params, cache, full
+    torch.cuda.empty_cache()
+    return variants["cuda_core"]
+
+
+def moe_plain(cfg, p, x, round_gating=False):
+    """``apply_moe``'s routed experts on x (B, S, d), computed expert by
+    expert over its kept assignments, independently of the port's
+    dispatch: an f32 router product, top-k renormalized, each expert
+    keeping its first ``capacity`` assignments in (token, choice) order;
+    f32 gate and up products, their gated product and the down projection
+    rounded to x's dtype, each token's weighted outputs summed in f32 and
+    rounded once.  ``round_gating`` rounds gate and up to x's dtype first
+    (a planted fault: the gating precision the reference does not use)."""
+    import torch.nn.functional as F
+
+    b, s, d = x.shape
+    t, e, k, wdt = b * s, cfg.n_experts, cfg.top_k, x.dtype
+    xf = x.reshape(t, d)
+    probs = torch.softmax(xf.float() @ p["router"].to(wdt).float(), -1)
+    top_p, top_e = torch.topk(probs, k, -1)
+    top_p = (top_p / top_p.sum(-1, keepdim=True)).reshape(-1)
+    cap = int(cfg.capacity_factor * t * k / e)
+    cap = min(max(8, -(-cap // 8) * 8), t * k)
+    flat = top_e.reshape(-1)
+    onehot = F.one_hot(flat, e)
+    keep = ((onehot.cumsum(0) - onehot) * onehot).sum(-1) < cap
+    out = torch.zeros((t * k, d), dtype=torch.float32, device=x.device)
+    for ex in flat[keep].unique().tolist():
+        idx = torch.nonzero((flat == ex) & keep).squeeze(1)
+        xe = xf[idx // k].float()
+        g = xe @ p["wi_gate"][ex].to(wdt).float()
+        u = xe @ p["wi_up"][ex].to(wdt).float()
+        if round_gating:
+            g, u = g.to(wdt).float(), u.to(wdt).float()
+        h = (F.silu(g) * u).to(wdt)
+        y = (h.float() @ p["wo"][ex].to(wdt).float()).to(wdt)
+        out[idx] = (y * top_p[idx, None].to(wdt)).float()
+    return out.reshape(t, k, d).sum(1).to(wdt).reshape(b, s, d)
+
+
+#: bf16 ``apply_moe`` against ``moe_plain``: relative RMS error limit.  The
+#: two share their rounding points; their f32 sums differ in order (the
+#: port's GEMMs take bf16 operands with f32 output, the plain version f32
+#: operands), by about 1e-5, which flips a share of the bf16 roundings of
+#: the gated product and the output by one step: about 1.1e-3 on an H100
+#: (one bf16 rounding step is about 1.1e-3 in relative RMS).  Gate and up
+#: rounded to bf16 before silu, the planted fault, give about 4.7e-3
+MOE_REL_RMS = 2.5e-3
+
+
+def check_moe_bf16(cfg, params, dev) -> None:
+    """The first layer's routed experts in bf16 at phase 7's prefill and
+    decode shapes (B 4 x the prompt, B 4 x 1) against ``moe_plain``, and
+    the planted fault of bf16 gating, which must fail the limit."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import index_tree
+
+    routed = cfg.scaled(n_shared_experts=0)
+    p = index_tree(params["groups"][f"b0_{cfg.block_pattern[0]}"]["mlp"], 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rel = lambda a, w: ((a.float() - w.float()).norm()  # noqa: E731
+                        / w.float().norm()).item()
+    for s in (ZOO_PROMPT.get(cfg.name, 1024), 1):
+        x = torch.randn((ZOO_BATCH, s, cfg.d_model), generator=gen,
+                        device=dev).to(cfg.dtype)
+        got = moe.apply_moe(routed, p, x)
+        want = moe_plain(routed, p, x)
+        err, fault = rel(got, want), rel(moe_plain(routed, p, x, True), want)
+        phase(f"7 {cfg.name} bf16 MoE B {ZOO_BATCH} x {s} vs the f32-product"
+              f" plain version", err <= MOE_REL_RMS < fault
+              and bool(torch.isfinite(got).all()),
+              f"rel_rms={err:.3e} (limit {MOE_REL_RMS}); bf16 gating "
+              f"(planted fault) {fault:.3e}")
+
+
+def zoo_window(cfg, params, dev) -> dict:
+    """Prefills at B 1 of exactly the window (the flash kernel on every
+    windowed layer) and of the window + 512 (the plain banded route),
+    timed.  Returns both runs' counts and ms."""
+    from repro_torch.models import build_model
+
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    out = {}
+    for t in (cfg.window, cfg.window + 512):
+        toks, _ = _zoo_inputs(cfg, 1, t, gen, dev)
+        model.prefill(params, toks[:, :256])  # warm the shapes' kernels
+        zoo_zero()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, toks)
+        finite = bool(torch.isfinite(logits).all())
+        got = zoo_read()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = expected_routes(cfg, t)
+        route = "kernel" if t <= cfg.window else "plain banded"
+        phase(f"7 {cfg.name} prefill B 1 T {t} ({route} route)",
+              finite and _routes_ok(got, want),
+              f"routes {got} (want kernel, plain = {want}), {ms:.1f} ms "
+              f"(host clock) on {gpu_name_and_limit()}")
+        out[t] = dict(got, ms=ms)
+        del cache
+    return out
+
+
+def zoo_bf16(arch, dev) -> dict:
+    """The arch in bf16 at ZOO_DEPTH: the parameter count, a prefill of
+    ZOO_BATCH seeded prompts and ZOO_NEW greedy decode steps with the
+    flash routes held to the table; the window prefills (mixtral,
+    recurrentgemma); deepseek's paged greedy decode against the
+    contiguous one (printed).  Returns the counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, count_params, init_params
+    from repro_torch.serve import paged_mla_decode_step
+
+    full_cfg = get_config(arch)
+    depth = ZOO_DEPTH[arch]
+    cfg = full_cfg if depth is None else full_cfg.scaled(n_layers=depth)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30  # by earlier phases
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, device=dev)
+    n = sum(t.numel() for t in _leaves(params))
+    torch.cuda.synchronize()
+    counts = (count_params(full_cfg), count_params(full_cfg, True))
+    phase(f"7 {arch} parameters", counts == ZOO_PARAMS[arch]
+          and n == count_params(cfg),
+          f"full: {counts[0]} (active {counts[1]}; want {ZOO_PARAMS[arch]});"
+          f" resident {n} at {cfg.n_layers} of {full_cfg.n_layers} layers in "
+          f"{cfg.dtype}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB ({held:.2f} GiB held before), init "
+          f"{time.perf_counter() - t0:.1f} s")
+    if cfg.is_moe:
+        guarded(f"7 {arch} bf16 MoE", check_moe_bf16, cfg, params, dev)
+    model = build_model(cfg)
+    b, t = ZOO_BATCH, ZOO_PROMPT.get(arch, 1024)
+    toks, extra = _zoo_inputs(cfg, b, t, gen, dev)
+    model.prefill(params, toks[:1, :128], extra={k: v[:1] for k, v in
+                                                 extra.items()})  # warm up
+    zoo_zero()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, toks, max_len=t + ZOO_NEW,
+                                  extra=extra)
+    pre = zoo_read()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    if cfg.use_mla:  # pages before decode_step writes the cache in place
+        pools, tables = _mla_pages(cfg, cache, b, t, t + MLA_STEPS, gen, dev)
+    finite = torch.isfinite(logits).all()
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    first = tok
+    dense = []
+    t0 = time.perf_counter()
+    for i in range(ZOO_NEW):
+        pos = torch.full((b,), t + i, dtype=torch.int32, device=dev)
+        logits, cache = model.decode_step(params, cache, tok, pos)
+        finite &= torch.isfinite(logits).all()
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        dense.append(tok)
+    dec = zoo_read()
+    decode_s = time.perf_counter() - t0
+    dec = {k: dec[k] - pre[k] for k in dec}
+    want_pre = expected_routes(cfg, t)
+    want_dec = tuple(ZOO_NEW * n for n in expected_routes(cfg, t, True))
+    fin = bool(finite)
+    phase(f"7 {arch} bf16 at {cfg.n_layers} layers: prefill B {b} x {t} "
+          f"+ {ZOO_NEW} greedy decode_steps", fin and _routes_ok(pre, want_pre)
+          and _routes_ok(dec, want_dec),
+          f"finite={fin}; prefill routes {pre} (want {want_pre}); decode "
+          f"routes {dec} (want {want_dec})")
+    # a decode step reads every weight of the stack and the head at least
+    # once (MoE: the capacity floor of 8 slots gives every expert a
+    # buffer); not the encoder, the position tables or an untied
+    # embedding table, of which it gathers B rows
+    skip = {"encoder", "dec_pos", "frontend"} | (
+        set() if cfg.tie_embeddings else {"embed"})
+    bound_ms = sum(t.numel() * t.element_size() for k, v in params.items()
+                   if k not in skip for t in _leaves(v)) / HBM_BPS * 1e3
+    print(f"  7 {arch} bf16, {cfg.n_layers} layers, B {b}: prefill {t} "
+          f"tokens {prefill_ms:.1f} ms, decode {decode_s / ZOO_NEW * 1e3:.2f}"
+          f" ms/step (weight-read bound {bound_ms:.2f} ms), "
+          f"{b * ZOO_NEW / decode_s:.1f} tokens/s (host clock), "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"({held:.2f} GiB held before) on {gpu_name_and_limit()}",
+          flush=True)
+    out = {"prefill": pre, "decode": dec, "prefill_ms": prefill_ms,
+           "decode_ms": decode_s / ZOO_NEW * 1e3}
+    if cfg.use_mla:
+        tok, match = first, 0
+        for i in range(min(MLA_STEPS, ZOO_NEW)):
+            pos = torch.full((b,), t + i, dtype=torch.int32, device=dev)
+            lp, pools = paged_mla_decode_step(cfg, params, pools, tables,
+                                              pos + 1, tok, pos)
+            tok = torch.argmax(lp, dim=-1).to(torch.int32)
+            match += int((tok == dense[i]).sum())
+        print(f"  7 {arch} bf16 paged latent decode: greedy token match "
+              f"{match}/{b * MLA_STEPS} against decode_step (not held)",
+              flush=True)
+        del pools
+    del cache, logits
+    if cfg.window is not None:
+        out["window"] = guarded(f"7 {arch} window", zoo_window, cfg, params,
+                                dev)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_phase(dev) -> dict:
+    """Phase 7, one arch resident at a time: the f32 consistency run, then
+    the bf16 run at ZOO_DEPTH.  Returns the bf16 runs' counts by arch,
+    with the f32 run's CUDA-core flash launches under ``f32_cuda_core``."""
+    out = {}
+    for arch in ZOO_DEPTH:
+        t0 = time.perf_counter()
+        f32 = guarded(f"7 {arch} f32", zoo_f32, arch, dev)
+        res = guarded(f"7 {arch} bf16", zoo_bf16, arch, dev)
+        out[arch] = dict(res or {}, f32_cuda_core=f32 or 0)
+        print(f"  phase 7 {arch}: {time.perf_counter() - t0:.1f} s",
               flush=True)
     return out
 
@@ -1887,27 +2404,64 @@ def main() -> int:
                         2e-2, "stablelm-3b prefill")
     flash_gqa = check_flash(1, 4096, 24, 2, 128, torch.bfloat16, True, gen,
                             dev, 2e-2, "starcoder2-3b prefill")
-    check_flash(2, 1024, 8, 2, 64, torch.float32, False, gen, dev, 1e-4,
-                "GQA")
     # gemma-7b prefill (MHA 16 / 16, D 256; src/repro/configs/gemma_7b.py)
     flash_gemma = check_flash(1, 4096, 16, 16, 256, torch.bfloat16, True, gen,
                               dev, 2e-2, "gemma-7b prefill")
     torch.cuda.empty_cache()
+    # phase 7's shapes: mixtral-8x7b (GQA 32 / 8, D 128) at phase 7's prompt
+    # and at its window, recurrentgemma-2b's local attention (MQA 10 / 1,
+    # D 256) likewise, and whisper-small's encoder (12 heads of 64,
+    # non-causal over 1500 frames)
+    flash_zoo = {
+        ("mixtral-8x7b", 1024): check_flash(
+            4, 1024, 32, 8, 128, torch.bfloat16, True, gen, dev, 2e-2,
+            "mixtral-8x7b prefill"),
+        ("mixtral-8x7b", 4096): check_flash(
+            1, 4096, 32, 8, 128, torch.bfloat16, True, gen, dev, 2e-2,
+            "mixtral-8x7b prefill at the window"),
+        ("recurrentgemma-2b", 1024): check_flash(
+            4, 1024, 10, 1, 256, torch.bfloat16, True, gen, dev, 2e-2,
+            "recurrentgemma-2b prefill"),
+        ("recurrentgemma-2b", 2048): check_flash(
+            1, 2048, 10, 1, 256, torch.bfloat16, True, gen, dev, 2e-2,
+            "recurrentgemma-2b prefill at the window"),
+        ("whisper-small", 1500): check_flash(
+            4, 1500, 12, 12, 64, torch.bfloat16, False, gen, dev, None,
+            "whisper-small encoder", scaled=True),
+    }
+    # the CUDA-core walk at phase 7's f32 group shapes (B 2, prefill of 64
+    # tokens; whisper's encoder over its 1500 frames)
+    flash_f32 = {
+        "mixtral-8x7b": check_flash(2, 64, 32, 8, 128, torch.float32, True,
+                                    gen, dev, 1e-4, "mixtral-8x7b f32 group"),
+        "recurrentgemma-2b": check_flash(
+            2, 64, 10, 1, 256, torch.float32, True, gen, dev, 1e-4,
+            "recurrentgemma-2b f32 group"),
+        "whisper-small": check_flash(
+            2, 1500, 12, 12, 64, torch.float32, False, gen, dev, 1e-4,
+            "whisper-small f32 group encoder"),
+    }
+    torch.cuda.empty_cache()
 
-    launches, launches_q8, schemes, runtime = serve_full_width(dev)
+    launches, launches_q8, schemes, runtime, zoo_stablelm = \
+        serve_full_width(dev)
     t4 = time.perf_counter()
     shard_tokens(dev)
     print(f"  phase 4a': {time.perf_counter() - t4:.1f} s", flush=True)
     step_matches_cpu(dev)
     forced_slow_path(dev)
     archs = serve_archs(dev)
+    t7 = time.perf_counter()
+    zoo = zoo_phase(dev)
+    print(f"  phase 7: {time.perf_counter() - t7:.1f} s", flush=True)
 
     # one row per (kernel, main-path shape) under the kernel's own name;
     # the first row of each name is at the shape earlier versions of this
     # line reported (decode, bf16 q), ``case`` and ``variant`` say which
     # shape and kernel variant a row is.  ``launches``: that variant's
     # launches in the serving run whose path it is on (bf16 or int8 pages);
-    # flash attention and the f32 query's paths are on no serving path
+    # the f32 query's paths are on no serving path; flash attention's rows
+    # take their launches from the model zoo's prefills (phases 3, 6, 7)
     paged = "src/repro_torch/kernels/csrc/paged_attention.cu"
     rows = [
         ("paged_attention_chunk", 148, "decode B 8 C 1, bf16 q",
@@ -1974,8 +2528,22 @@ def main() -> int:
     kernels[5]["launches_combine"] = launches_q8["combine"]
     flash_src = dict(route="cuda",
                      source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                     replaces="src/repro/kernels/flash_attention.py:83",
-                     launches=0, on_main_path=False)
+                     replaces="src/repro/kernels/flash_attention.py:83")
+
+    def zoo_launches(arch, t=None):
+        """The flash kernel's launches in phase 7's bf16 prefill of
+        ``arch`` (its window prefill at B 1 when t is given); for a
+        served dense arch, in its model-zoo prefill (phases 3 and 6)."""
+        if arch == "stablelm-3b":
+            return (zoo_stablelm or {}).get("launches", 0)
+        if arch in ARCH_PARAMS:
+            return archs.get((arch, "zoo"), {}).get("launches", 0)
+        res = zoo.get(arch, {})
+        if t is not None:
+            return ((res.get("window") or {}).get(t) or {}).get(
+                "launches", 0)
+        return res.get("prefill", {}).get("launches", 0)
+
     # the era scan's rows, the first at R 4096 S 512; ``launches``: the bf16
     # serving run's, ``launches_by_scheme``: phase 3c's
     kernels += [
@@ -1988,12 +2556,32 @@ def main() -> int:
         for row in era_rows]
     kernels += [
         dict(name="flash_attention", case="stablelm-3b prefill", **flash_src,
-             **flash),
+             launches=zoo_launches("stablelm-3b"), **flash),
         dict(name="flash_attention", case="starcoder2-3b prefill",
-             **flash_src, **flash_gqa),
-        dict(name="flash_attention", case="gemma-7b prefill", **flash_src,
-             **flash_gemma),
+             arch="starcoder2-3b", **flash_src,
+             launches=zoo_launches("starcoder2-3b"), **flash_gqa),
+        dict(name="flash_attention", case="gemma-7b prefill", arch="gemma-7b",
+             **flash_src, launches=zoo_launches("gemma-7b"), **flash_gemma),
     ]
+    for (arch, t), row in flash_zoo.items():
+        at_window = t in (4096, 2048)
+        case = (f"{arch} encoder B 4 T {t}, non-causal (the prefill's "
+                f"launches: encoder and decoder self-attention)"
+                if arch == "whisper-small" else
+                f"{arch} prefill B {1 if at_window else 4} T {t}")
+        kernels.append(dict(name="flash_attention", case=case, arch=arch,
+                            **flash_src,
+                            launches=zoo_launches(arch, t if at_window
+                                                  else None), **row))
+    # the CUDA-core walk's rows: launches of phase 7's f32 group of the arch
+    # (its forward, prefill and decode steps)
+    for arch, row in flash_f32.items():
+        case = ("whisper-small f32 group encoder B 2 T 1500, non-causal"
+                if arch == "whisper-small" else
+                f"{arch} f32 group prefill B 2 T 64")
+        kernels.append(dict(name="flash_attention", case=case, arch=arch,
+                            **flash_src, launches=zoo.get(arch, {}).get(
+                                "f32_cuda_core", 0), **row))
     # ``launches_runtime``: each row's launches in phase 4c's 2-worker run
     # on 2 shards (bf16 pages), by the row's variant and, for the engine's
     # mixed step, by plan kind

@@ -13,7 +13,11 @@ tiles and takes any T.  ``csrc/flash_attention.cu`` holds two variants
 module checks the operands and launches the chosen variant on the current
 CUDA stream.  Its plain PyTorch version is ``flash_attention_ref``.
 
-As in the JAX package, no serving or model path calls it.
+The model zoo's attention (``models.attention.flash_attention``) launches
+it on CUDA for the self-attention of ``forward``, ``prefill`` and the
+whisper encoder wherever its route table allows (equal q and k lengths
+from ``arange`` positions, no window cut, Dv == D <= 256); the paged
+serving steps do not call it.
 """
 
 from __future__ import annotations

@@ -97,6 +97,18 @@ class ArchConfig:
         full = {"attn"} & kinds
         return not full or (self.window is not None and "attn" not in kinds)
 
+    def param_count(self) -> int:
+        """Exact parameter count (embedding + stack + head)."""
+        from . import model_zoo  # lazy: avoids an import cycle
+
+        return model_zoo.count_params(self)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: shared + top_k experts)."""
+        from . import model_zoo
+
+        return model_zoo.count_params(self, active_only=True)
+
     def scaled(self, **overrides) -> "ArchConfig":
         """A reduced copy for smoke tests (dataclasses.replace wrapper)."""
         return dataclasses.replace(self, **overrides)

@@ -1,4 +1,4 @@
-"""Shared primitive layers: norms, embeddings, MLPs, RoPE.
+"""Shared primitive layers: norms, embeddings, MLPs, RoPE, tree helpers.
 
 Plain functions over tensors and a params dict, as in ``repro.models.layers``.
 Matmuls cast the weight to the activation dtype; on the card a bf16 product
@@ -16,6 +16,30 @@ def matmul(x: torch.Tensor, w: torch.Tensor, dtype=None) -> torch.Tensor:
     cast to ``dtype`` (default: the activation dtype)."""
     out_dtype = dtype or x.dtype
     return torch.matmul(x, w.to(x.dtype)).to(out_dtype)
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w as an f32 product: both operands are read as f32 after the
+    weight is cast to the activation dtype, so bf16 inputs enter exactly and
+    nothing rounds to bf16 (``repro``'s ``matmul(..., dtype=f32)`` with its
+    f32 accumulation).  For small weights (the MoE router)."""
+    return torch.matmul(x.float(), w.to(x.dtype).float())
+
+
+def index_tree(tree, i):
+    """The ``i``-th slice of every leaf of a nested dict (one group's or
+    one layer's parameters or cache out of a stacked tree); views, no copy."""
+    if isinstance(tree, dict):
+        return {k: index_tree(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def stack_trees(trees):
+    """Stack a list of nested dicts of tensors leaf by leaf (new dim 0)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
 
 
 # ----------------------------------------------------------------- norms

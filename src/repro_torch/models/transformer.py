@@ -1,0 +1,319 @@
+"""Model assembly (``repro.models.transformer``): decoder-only LMs and the
+whisper encoder-decoder, for inference — ``forward``, ``lm_loss``,
+``init_cache``, ``prefill`` and ``decode_step``.
+
+The stack is ``n_groups`` repetitions of ``cfg.block_pattern`` with every
+parameter stacked along a leading group axis, as in the reference; where
+the reference scans over groups, the port loops.  Block kinds: attn |
+local_attn | swa | rglru | mlstm | slstm, each pre-norm residual
+(x += mix(norm(x)); x += mlp(norm(x)), the MLP a MoE FFN for MoE configs
+and skipped where ``d_ff == 0`` or ``mlp_kind == "none"``).  The reference's
+sharding constraints have no counterpart: the port has no mesh.
+
+``forward``, ``prefill`` and ``run_encoder`` build their positions as
+``arange(T)`` and say so to ``attention.flash_attention``
+(``arange_positions=True``), which is what lets their self-attention take
+the CUDA flash kernel.  ``decode_step`` updates the cache in place and
+returns it.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch import resolve_device
+
+from . import attention as attn
+from . import frontends, moe, rglru, xlstm
+from .layers import (apply_mlp, apply_norm, embed_tokens, index_tree, matmul,
+                     stack_trees, unembed)
+
+Params = Dict[str, Any]
+_ATTN = ("attn", "local_attn", "swa")
+
+
+def _has_mlp(cfg) -> bool:
+    return cfg.d_ff > 0 and cfg.mlp_kind != "none"
+
+
+def _positions(b: int, t: int, device) -> torch.Tensor:
+    return torch.arange(t, device=device)[None].expand(b, t)
+
+
+def _ffn(cfg, bp, x):
+    if not _has_mlp(cfg):
+        return x
+    h = apply_norm(cfg, bp["norm_mlp"], x)
+    ff = (moe.apply_moe(cfg, bp["mlp"], h) if cfg.is_moe
+          else apply_mlp(cfg, bp["mlp"], h))
+    return x + ff
+
+
+def _cross_train(cfg, bp, x, positions, cross_kv):
+    h = apply_norm(cfg, bp["norm_cross"], x)
+    (k, v), enc_pos = cross_kv
+    return x + attn.gqa_train(cfg, bp["cross"], h, positions, causal=False,
+                              kv_override=(k, v), kv_positions=enc_pos)
+
+
+def _cross_kv(cfg, bp, enc_out, enc_pos):
+    b, te, _ = enc_out.shape
+    kh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    k = matmul(enc_out, bp["cross"]["wk"]).reshape(b, te, kh, hd)
+    v = matmul(enc_out, bp["cross"]["wv"]).reshape(b, te, kh, hd)
+    return (k, v), enc_pos
+
+
+# ------------------------------------------------------------------ forward
+def _mix_train(cfg, kind, bp, x, positions, cross_kv=None):
+    h = apply_norm(cfg, bp["norm_mix"], x)
+    if kind in _ATTN:
+        window = cfg.window if kind in ("local_attn", "swa") else None
+        if cfg.use_mla:
+            out = attn.mla_train(cfg, bp["mix"], h, positions,
+                                 arange_positions=True)
+        else:
+            out = attn.gqa_train(cfg, bp["mix"], h, positions, window=window,
+                                 arange_positions=True)
+    elif kind == "rglru":
+        out = rglru.rglru_train(cfg, bp["mix"], h)
+    elif kind == "mlstm":
+        out = xlstm.mlstm_train(cfg, bp["mix"], h)
+    else:  # slstm
+        out = xlstm.slstm_train(cfg, bp["mix"], h)
+    x = x + out
+    if cross_kv is not None:
+        x = _cross_train(cfg, bp, x, positions, cross_kv)
+    return _ffn(cfg, bp, x)
+
+
+def _dec_pos_embed(cfg, params, s: int) -> torch.Tensor:
+    """Learned decoder positions, clamped to the table size (the assigned
+    decode/prefill shapes mechanically exceed whisper's native context)."""
+    table = params["dec_pos"]["pos"].to(cfg.dtype)
+    idx = torch.clamp(torch.arange(s, device=table.device),
+                      max=table.shape[0] - 1)
+    return table[idx][None]
+
+
+def run_encoder(cfg, params, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper encoder over precomputed frame embeddings (B, Te, d)."""
+    enc = params["encoder"]
+    x = frames.to(cfg.dtype) + enc["pos"]["pos"].to(cfg.dtype)[None]
+    pos = _positions(x.shape[0], x.shape[1], x.device)
+    for i in range(cfg.n_encoder_layers):
+        lp = index_tree(enc["layers"], i)
+        h = apply_norm(cfg, lp["norm_mix"], x)
+        x = x + attn.gqa_train(cfg, lp["mix"], h, pos, causal=False,
+                               arange_positions=True)
+        h = apply_norm(cfg, lp["norm_mlp"], x)
+        x = x + apply_mlp(cfg, lp["mlp"], h)
+    return apply_norm(cfg, enc["final_norm"], x)
+
+
+def _embed(cfg, params, tokens, extra):
+    """Token embeddings with pixtral's patch prefix spliced in, and for
+    whisper the encoder output and its positions (else None, None)."""
+    b, s = tokens.shape
+    x = embed_tokens(cfg, params["embed"], tokens)
+    if cfg.frontend == "patches" and "patch_embeds" in extra:
+        x = frontends.splice_prefix(cfg, params["frontend"], x,
+                                    extra["patch_embeds"])
+    enc_out = enc_pos = None
+    if cfg.is_encoder_decoder:
+        enc_out = run_encoder(cfg, params, extra["frames"])
+        enc_pos = _positions(b, enc_out.shape[1], enc_out.device)
+        x = x + _dec_pos_embed(cfg, params, s)
+    return x, enc_out, enc_pos
+
+
+def _logits(cfg, params, x):
+    x = apply_norm(cfg, params["final_norm"], x)
+    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    return unembed(cfg, head, x)
+
+
+@torch.no_grad()
+def forward(cfg, params, tokens: torch.Tensor,
+            extra: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """Full-sequence logits.  tokens: (B, S) -> (B, S, V) f32."""
+    extra = extra or {}
+    x, enc_out, enc_pos = _embed(cfg, params, tokens, extra)
+    positions = _positions(*tokens.shape, tokens.device)
+    for g in range(cfg.n_groups):
+        gp = index_tree(params["groups"], g)
+        for j, kind in enumerate(cfg.block_pattern):
+            bp = gp[f"b{j}_{kind}"]
+            cross_kv = (_cross_kv(cfg, bp, enc_out, enc_pos)
+                        if enc_out is not None else None)
+            x = _mix_train(cfg, kind, bp, x, positions, cross_kv)
+    return _logits(cfg, params, x)
+
+
+@torch.no_grad()
+def lm_loss(cfg, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Next-token cross-entropy; batch: tokens (B,S), labels (B,S) (-1 = pad)."""
+    logits = forward(cfg, params, batch["tokens"],
+                     {k: v for k, v in batch.items()
+                      if k not in ("tokens", "labels")})
+    labels = batch["labels"]
+    valid = labels >= 0
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1,
+                          torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    nll = torch.where(valid, lse - picked, 0.0)
+    return nll.sum() / torch.clamp(valid.sum(), min=1)
+
+
+# ================================================================ caches
+def _cache_len(cfg, kind: str, max_len: int) -> int:
+    if kind in ("local_attn", "swa") and cfg.window is not None:
+        return min(cfg.window, max_len)
+    return max_len
+
+
+def init_cache(cfg, batch: int, max_len: int, device=None) -> Params:
+    """Decode-state tree on ``device`` (default CUDA); attn caches sized
+    max_len (window-clamped), each leaf stacked over the groups."""
+    dev = resolve_device(device)
+    groups: Dict[str, Any] = {}
+    for j, kind in enumerate(cfg.block_pattern):
+        if kind in _ATTN:
+            ln = _cache_len(cfg, kind, max_len)
+            one = (attn.init_mla_cache(cfg, batch, ln, device=dev)
+                   if cfg.use_mla
+                   else attn.init_kv_cache(cfg, batch, ln, device=dev))
+        elif kind == "rglru":
+            one = rglru.init_rglru_state(cfg, batch, device=dev)
+        elif kind == "mlstm":
+            one = xlstm.init_mlstm_state(cfg, batch, device=dev)
+        else:
+            one = xlstm.init_slstm_state(cfg, batch, device=dev)
+        groups[f"b{j}_{kind}"] = {
+            k: a[None].expand((cfg.n_groups,) + a.shape).clone()
+            for k, a in one.items()}
+    cache: Params = {"groups": groups}
+    if cfg.is_encoder_decoder:
+        kh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        shape = (cfg.n_groups, batch, cfg.encoder_ctx, kh, hd)
+        cache["cross"] = {
+            f"b{j}_{kind}": {
+                "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+            for j, kind in enumerate(cfg.block_pattern)}
+    return cache
+
+
+# ================================================================ prefill
+def _mix_prefill(cfg, kind, bp, x, positions, max_len, cross_kv=None):
+    h = apply_norm(cfg, bp["norm_mix"], x)
+    window = cfg.window if kind in ("local_attn", "swa") else None
+    if kind in _ATTN:
+        ln = _cache_len(cfg, kind, max_len)
+        if cfg.use_mla:
+            out, c = attn.mla_prefill(cfg, bp["mix"], h, positions, ln,
+                                      arange_positions=True)
+        else:
+            out, c = attn.gqa_prefill(cfg, bp["mix"], h, positions, ln,
+                                      window=window, arange_positions=True)
+    elif kind == "rglru":
+        out, c = rglru.rglru_train(cfg, bp["mix"], h, return_state=True)
+    elif kind == "mlstm":
+        out, c = xlstm.mlstm_train(cfg, bp["mix"], h, return_state=True)
+    else:
+        out, c = xlstm.slstm_train(cfg, bp["mix"], h, return_state=True)
+    x = x + out
+    if cross_kv is not None:
+        x = _cross_train(cfg, bp, x, positions, cross_kv)
+    return _ffn(cfg, bp, x), c
+
+
+@torch.no_grad()
+def prefill(cfg, params, tokens: torch.Tensor, max_len: Optional[int] = None,
+            extra: Optional[Dict[str, torch.Tensor]] = None):
+    """Process the prompt; returns (last-token logits (B, V) f32, cache)."""
+    extra = extra or {}
+    b, s = tokens.shape
+    max_len = max_len or s
+    x, enc_out, enc_pos = _embed(cfg, params, tokens, extra)
+    positions = _positions(b, s, tokens.device)
+    caches, crosses = [], []
+    for g in range(cfg.n_groups):
+        gp = index_tree(params["groups"], g)
+        group_cache, group_cross = {}, {}
+        for j, kind in enumerate(cfg.block_pattern):
+            nm = f"b{j}_{kind}"
+            bp = gp[nm]
+            cross_kv = None
+            if enc_out is not None:
+                cross_kv = _cross_kv(cfg, bp, enc_out, enc_pos)
+                group_cross[nm] = dict(zip("kv", cross_kv[0]))
+            x, group_cache[nm] = _mix_prefill(cfg, kind, bp, x, positions,
+                                              max_len, cross_kv)
+        caches.append(group_cache)
+        crosses.append(group_cross)
+    logits = _logits(cfg, params, x[:, -1:])[:, 0]
+    cache: Params = {"groups": stack_trees(caches)}
+    if cfg.is_encoder_decoder:
+        cache["cross"] = stack_trees(crosses)
+    return logits, cache
+
+
+# ================================================================ decode
+def _mix_decode(cfg, kind, bp, x, cache_one, position, cross_cache=None):
+    h = apply_norm(cfg, bp["norm_mix"], x)
+    window = cfg.window if kind in ("local_attn", "swa") else None
+    if kind in _ATTN:
+        if cfg.use_mla:
+            out, c = attn.mla_decode(cfg, bp["mix"], h, cache_one, position)
+        else:
+            out, c = attn.gqa_decode(cfg, bp["mix"], h, cache_one, position,
+                                     window=window)
+    elif kind == "rglru":
+        out, c = rglru.rglru_decode(cfg, bp["mix"], h, cache_one)
+    elif kind == "mlstm":
+        out, c = xlstm.mlstm_decode(cfg, bp["mix"], h, cache_one)
+    else:
+        out, c = xlstm.slstm_decode(cfg, bp["mix"], h, cache_one)
+    x = x + out
+    if cross_cache is not None:
+        h = apply_norm(cfg, bp["norm_cross"], x)
+        b, te = cross_cache["k"].shape[:2]
+        hq, hd = cfg.n_heads, cfg.resolved_head_dim
+        q = matmul(h, bp["cross"]["wq"]).reshape(b, 1, hq, hd)
+        q_pos = torch.full((b, 1), te, dtype=torch.long, device=x.device)
+        o = attn.flash_attention(q, cross_cache["k"], cross_cache["v"],
+                                 q_pos, _positions(b, te, x.device),
+                                 causal=False)
+        x = x + matmul(o.reshape(b, 1, hq * hd), bp["cross"]["wo"])
+    return _ffn(cfg, bp, x), c
+
+
+@torch.no_grad()
+def decode_step(cfg, params, cache: Params, tokens: torch.Tensor,
+                positions: torch.Tensor):
+    """One decode step.  tokens (B,) int; positions (B,) int.
+
+    Returns (logits (B, V) f32, cache): the cache is updated in place (a
+    caller keeps no older copy of it) and returned.
+    """
+    x = embed_tokens(cfg, params["embed"], tokens[:, None])
+    if cfg.is_encoder_decoder:
+        table = params["dec_pos"]["pos"].to(cfg.dtype)
+        x = x + table[torch.clamp(positions, max=table.shape[0] - 1)][:, None]
+    for g in range(cfg.n_groups):
+        gp = index_tree(params["groups"], g)
+        for j, kind in enumerate(cfg.block_pattern):
+            nm = f"b{j}_{kind}"
+            stacked = cache["groups"][nm]
+            cross = (index_tree(cache["cross"][nm], g)
+                     if cfg.is_encoder_decoder else None)
+            x, new = _mix_decode(cfg, kind, gp[nm], x,
+                                 index_tree(stacked, g), positions, cross)
+            for leaf, val in new.items():
+                dst = stacked[leaf][g]
+                if val.data_ptr() != dst.data_ptr():  # not written in place
+                    dst.copy_(val)
+    return _logits(cfg, params, x)[:, 0], cache

@@ -71,7 +71,8 @@ from repro_torch.blocks import (BlockPool, PrefixCache, Scheduler,
                                 ShardedBlockPool)
 from repro_torch.models.common import ArchConfig
 
-from .paged_model import init_pools, paged_decode_step, paged_prefill_chunk
+from .paged_model import (_check_paged_support, init_pools, paged_decode_step,
+                          paged_prefill_chunk)
 
 __all__ = ["ServeEngine"]
 
@@ -98,6 +99,9 @@ class ServeEngine:
                  kv_dtype: Optional[str] = None,
                  device=None,
                  **smr_kwargs):
+        # refuse an arch the paged steps do not serve before building
+        # anything (the reference refuses at its first step)
+        _check_paged_support(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.kv_dtype = kv_dtype

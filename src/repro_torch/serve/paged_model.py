@@ -15,7 +15,12 @@ still queued on the device (see ``engine.ServeEngine.execute_plan``).
 Pools hold f32, fp16, bf16 or int8 pages (``KV_DTYPES``); int8 pages carry
 per-(block, kv-head) scales written by ``kernels.quant.scatter_quantized``.
 
-Supported stacks: dense attention ("attn") without MLA.
+Supported stacks: full attention ("attn") without MLA or an encoder, with
+dense or MoE FFNs (``_check_paged_support``, as the reference's).  MLA
+stacks page their 576-wide latents instead of K/V through
+``init_mla_pools`` and ``paged_mla_decode_step`` (plain PyTorch, as the
+reference's jnp: the latent row is wider than the attention kernels'
+head dims).
 """
 
 from __future__ import annotations
@@ -28,9 +33,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.kernels import paged_chunk_attention, paged_decode_attention
 from repro_torch.kernels.quant import scatter_quantized
-from repro_torch.models.attention import _qkv
-from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
+from repro_torch.models.attention import _mla_qkv, _qkv, mla_latent_attention
+from repro_torch.models.layers import (apply_norm, embed_tokens, index_tree,
                                        matmul, unembed)
+from repro_torch.models.transformer import _ffn
 
 Params = Dict[str, Any]
 
@@ -85,13 +91,18 @@ def _write_kv(pools, l, blk, off, k_rows, v_rows, dest=None):
 
 
 def _check_paged_support(cfg):
-    # full-attention GQA only, as in the reference (paged_model.py:81-86)
-    if cfg.use_mla or cfg.is_encoder_decoder or cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: paged serving of this "
-                                  "architecture is not ported yet")
+    """The reference's (paged_model.py:81-86): full-attention GQA only.
+    Windowed archs would need window masking in the paged gather, MLA pages
+    latents instead of K/V (``paged_mla_decode_step``), and an encoder's
+    cross-attention has no paged cache; MoE FFNs are served."""
+    if cfg.use_mla or cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: the paged steps serve GQA decoders; MLA decodes "
+            "through init_mla_pools/paged_mla_decode_step, and "
+            "encoder-decoder stacks are not served")
     if any(k != "attn" for k in cfg.block_pattern):
-        raise ValueError(f"paged serving needs full attention, got "
-                         f"{cfg.block_pattern}")
+        raise ValueError(f"{cfg.name}: paged serving needs full attention, "
+                         f"got {cfg.block_pattern}")
 
 
 def _layers(cfg, params):
@@ -101,15 +112,7 @@ def _layers(cfg, params):
     for l in range(cfg.n_groups * n_pat):
         g_i, j = divmod(l, n_pat)
         kind = cfg.block_pattern[j]
-        grp = params["groups"][f"b{j}_{kind}"]
-        yield l, {k: {n: t[g_i] for n, t in sub.items()}
-                  for k, sub in grp.items()}
-
-
-def _mlp_residual(cfg, bp, x):
-    if cfg.d_ff > 0 and cfg.mlp_kind != "none":
-        x = x + apply_mlp(cfg, bp["mlp"], apply_norm(cfg, bp["norm_mlp"], x))
-    return x
+        yield l, index_tree(params["groups"][f"b{j}_{kind}"], g_i)
 
 
 def paged_decode_step(cfg, params, pools, tables, lengths, tokens, positions):
@@ -149,7 +152,7 @@ def paged_decode_step(cfg, params, pools, tables, lengths, tokens, positions):
                                      scale=1.0 / math.sqrt(hd))
         out = out.reshape(b, 1, h * hd).to(x.dtype)
         x = x + matmul(out, bp["mix"]["wo"])
-        x = _mlp_residual(cfg, bp, x)
+        x = _ffn(cfg, bp, x)
     x = apply_norm(cfg, params["final_norm"], x)
     head = params["embed"] if cfg.tie_embeddings else params["head"]
     logits = unembed(cfg, head, x)[:, 0]
@@ -227,10 +230,83 @@ def paged_prefill_chunk(cfg, params, pools, tables, tokens, positions,
                                     scale=1.0 / math.sqrt(hd))
         out = out.reshape(b, c, h * hd).to(x.dtype)
         x = x + matmul(out, bp["mix"]["wo"])
-        x = _mlp_residual(cfg, bp, x)
+        x = _ffn(cfg, bp, x)
     # unembed ONLY each row's last valid token
     last = x[rows, (chunk_lens - 1).long()][:, None]  # (B, 1, d)
     last = apply_norm(cfg, params["final_norm"], last)
     head = params["embed"] if cfg.tie_embeddings else params["head"]
     logits = unembed(cfg, head, last)[:, 0]
+    return logits, pools
+
+
+# ===================================================================== MLA
+def init_mla_pools(cfg, n_blocks: int, block_size: int, kv_dtype=None,
+                   device=None) -> Dict[str, torch.Tensor]:
+    """Paged MLA latent pool on ``device`` (default CUDA): pages store
+    (c_kv ‖ k_rope) rows, ``lat`` (L, N, bs, r + dr) — 576 values a token
+    for deepseek-v2 instead of 2·KH·D; the same WFE block lifecycle applies.
+
+    ``kv_dtype="int8"`` is refused, as in the reference: a latent row is
+    the fused (c_kv ‖ k_rope) vector, whose halves have different ranges,
+    so the dense pools' per-(block, kv-head) scales do not apply.
+    """
+    if kv_dtype == "int8":
+        raise NotImplementedError(
+            "kv_dtype='int8' is not supported for paged MLA: latent pages "
+            "store fused (c_kv ‖ k_rope) rows whose two halves need "
+            "separate scale ranges — the per-(block, kv-head) scheme of "
+            "the dense pools does not map onto the latent cache")
+    if kv_dtype is not None and kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype={kv_dtype!r}: expected one of "
+                         f"{sorted(KV_DTYPES)} or None")
+    dtype = cfg.dtype if kv_dtype is None else KV_DTYPES[kv_dtype]
+    width = cfg.kv_lora_rank + cfg.rope_head_dim
+    shape = (cfg.n_groups * len(cfg.block_pattern), n_blocks, block_size,
+             width)
+    return {"lat": torch.zeros(shape, dtype=dtype,
+                               device=resolve_device(device))}
+
+
+def paged_mla_decode_step(cfg, params, pools, tables, lengths, tokens,
+                          positions):
+    """One decode token through the paged LATENT pool (absorbed-form MLA).
+
+    As ``paged_decode_step`` for ``cfg.use_mla`` archs: each new token's
+    latent row is written in place into the block its table names, then
+    attention runs in the latent space over the gathered pages.
+    tables (B, nblk) i32; lengths (B,) i32 (including the new token);
+    tokens/positions (B,) i32.  Returns (logits (B, V) f32, pools).
+    """
+    if not cfg.use_mla:
+        raise ValueError(f"{cfg.name}: paged_mla_decode_step needs an MLA "
+                         "config")
+    if pools["lat"].dtype == torch.int8:
+        raise NotImplementedError(
+            "paged_mla_decode_step has no int8 latent path — see "
+            "init_mla_pools (fused (c_kv ‖ k_rope) rows need a split "
+            "scale scheme)")
+    b = tokens.shape[0]
+    bs = pools["lat"].shape[2]
+    r = cfg.kv_lora_rank
+    nblk = tables.shape[1]
+    x = embed_tokens(cfg, params["embed"], tokens[:, None])
+    rows = torch.arange(b, device=tokens.device)
+    blk_of_tok = tables[rows, (positions // bs).long()].long()
+    off = (positions % bs).long()
+    valid = (torch.arange(nblk * bs, device=tokens.device)[None, :]
+             < lengths[:, None])
+    for l, bp in _layers(cfg, params):
+        hn = apply_norm(cfg, bp["norm_mix"], x)
+        q_nope, q_rope, c_kv1, k_rope1 = _mla_qkv(cfg, bp["mix"], hn,
+                                                  positions[:, None])
+        lat = pools["lat"][l]
+        lat[blk_of_tok, off] = torch.cat(
+            [c_kv1[:, 0], k_rope1[:, 0, 0]], -1).to(lat.dtype)
+        pages = lat[tables.long()].reshape(b, nblk * bs, -1)
+        x = x + mla_latent_attention(cfg, bp["mix"], hn, q_nope, q_rope,
+                                     pages[..., :r], pages[..., r:], valid)
+        x = _ffn(cfg, bp, x)
+    x = apply_norm(cfg, params["final_norm"], x)
+    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    logits = unembed(cfg, head, x)[:, 0]
     return logits, pools

@@ -44,7 +44,17 @@ FULL_PARAMS = {"starcoder2-3b": 3_180_705_792,
 
 
 def test_registry_lists_the_served_archs():
-    assert ALL_ARCHS == ("stablelm-3b",) + NEW_ARCHS
+    """Of the registry's ten archs, the paged engine serves these five."""
+    from repro_torch.serve.paged_model import _check_paged_support
+
+    served = []
+    for arch in ALL_ARCHS:
+        try:
+            _check_paged_support(get_smoke_config(arch))
+            served.append(arch)
+        except (NotImplementedError, ValueError):
+            pass
+    assert tuple(served) == ("stablelm-3b",) + NEW_ARCHS
 
 
 def _models(arch, **scale):

@@ -7,7 +7,8 @@ there alone:  PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 Tolerances: fp32 1e-4 (the kernel and the plain version sum in different
 orders and use different exp paths); bf16 2e-2 (the output is rounded to
 bf16, and the tensor-core tiles also round P to bf16 for the P V product:
-about one bf16 ulp).  Bounded vs unbounded walks, NaN-poisoned dead pages
+about one bf16 ulp); whisper's encoder, whose outputs are far smaller,
+is held to limits from its own magnitudes.  Bounded vs unbounded walks, NaN-poisoned dead pages
 and scales, the fused int8 kernel against the f32 kernel on dequantized
 pools, and the era scan are held bitwise: at every chip_smoke shape,
 reservation form (points, intervals, EBR's open form, empty slots), both
@@ -440,6 +441,10 @@ def test_split_decode_of_a_wide_table_equals_narrow(dev):
     (2, 300, 8, 1, 64),       # MQA, ragged T
     (1, 4096, 16, 16, 256),   # gemma-7b prefill
     (1, 300, 32, 8, 256),     # D 256, GQA 4, ragged T
+    (2, 1024, 32, 8, 128),    # mixtral-8x7b prefill (GQA 4)
+    (1, 4096, 32, 8, 128),    # mixtral-8x7b prefill at its window
+    (2, 1024, 10, 1, 256),    # recurrentgemma-2b local attention (MQA 10)
+    (1, 2048, 10, 1, 256),    # recurrentgemma-2b at its window
 ])
 def test_flash_tile_bf16_causal(dev, b, t, h, kh, d):
     rng = np.random.default_rng(t + h + d)
@@ -849,3 +854,110 @@ def test_dispatch_makes_no_host_sync(dev, kv_dtype):
         assert {"prefill", "mixed", "decode"} <= set(kinds), kinds
         outs.append([r.generated for r in reqs])
     assert outs[0] == outs[1]
+
+
+def _scaled_close(got, want, rel_rms=7e-3) -> bool:
+    """Within rtol 1e-2 plus 4 bf16 ulps of max |want| elementwise, and a
+    relative RMS error within ``rel_rms``: a limit from the shape's own
+    magnitudes, for outputs far below 2e-2."""
+    got, want = got.float(), want.float()
+    ulp = 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+    return (torch.allclose(got, want, rtol=1e-2, atol=4 * ulp)
+            and ((got - want).norm() / want.norm()).item() <= rel_rms)
+
+
+def _attend(q, k, v):
+    """Non-causal attention in f32 over any number of keys, rounded."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / 8.0
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1),
+                        v.float()).to(q.dtype)
+
+
+@pytest.mark.parametrize("b,t", [(1, 1500), (2, 1500), (1, 100)])
+def test_flash_tile_bf16_whisper_encoder(dev, b, t):
+    """whisper-small's encoder self-attention: 12 heads of 64, non-causal,
+    over 1500 frames (not a multiple of the 64-key tile).  |out| is about
+    0.04 here, so the limit is the shape's own; the last tile broken on
+    purpose (its pad keys unmasked, or dropped) must fail it."""
+    rng = np.random.default_rng(t + b)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, t, 12, 64)).astype(
+        np.float32)).to(dev).to(torch.bfloat16) for _ in range(3))
+    got = flash_attention.flash_attention(q, k, v, causal=False)
+    want = flash_attention_ref(q, k, v, causal=False)
+    assert _scaled_close(got, want)
+    cut = t - t % 64
+    z = k.new_zeros((b, 64 - t % 64, 12, 64))
+    assert not _scaled_close(_attend(q, torch.cat([k, z], 1),
+                                     torch.cat([v, z], 1)), want)
+    assert not _scaled_close(_attend(q, k[:, :cut], v[:, :cut]), want)
+
+
+# ------------------------------------------------- the model zoo on the card
+ZOO_ARCHS = ("recurrentgemma-2b", "stablelm-3b", "starcoder2-3b",
+             "starcoder2-7b", "gemma-7b", "deepseek-v2-236b", "mixtral-8x7b",
+             "xlstm-350m", "pixtral-12b", "whisper-small")
+
+
+def _zoo_routes(cfg, t):
+    """(kernel, plain) flash calls of a T-token forward on the card: the
+    table of ``models.attention``."""
+    n_attn = cfg.n_groups * sum(k in ("attn", "local_attn", "swa")
+                                for k in cfg.block_pattern)
+    if cfg.is_encoder_decoder:
+        return cfg.n_encoder_layers + cfg.n_layers, cfg.n_layers
+    windowed = any(k in ("local_attn", "swa") for k in cfg.block_pattern)
+    if cfg.use_mla or (windowed and t > cfg.window):
+        return 0, n_attn
+    return n_attn, 0
+
+
+@pytest.mark.parametrize("t", [8, 24])
+@pytest.mark.parametrize("arch", ZOO_ARCHS)
+def test_zoo_forward_routes_and_matches_plain(dev, arch, t):
+    """A smoke-size f32 forward on the card takes the flash kernel where
+    the route table says (counted by ``FLASH_ROUTES`` and the kernel's own
+    launches) and matches the same forward on the CPU, where every call
+    takes the plain route."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import attention, build_model, init_params
+
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(t)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, t)).astype(
+        np.int32))
+    extra = {}
+    if cfg.frontend == "frames":
+        extra["frames"] = torch.from_numpy(0.02 * rng.standard_normal(
+            (2, cfg.encoder_ctx, cfg.d_model)).astype(np.float32))
+    model = build_model(cfg)
+    want = model.forward(params, toks, extra)
+    to = lambda tree: {k: to(v) for k, v in tree.items()} \
+        if isinstance(tree, dict) else tree.to(dev)  # noqa: E731
+    k0, p0 = (attention.FLASH_ROUTES[r].n for r in ("kernel", "plain"))
+    n0 = flash_attention.LAUNCHES.n
+    got = model.forward(to(params), toks.to(dev), to(extra))
+    torch.cuda.synchronize()
+    routes = (attention.FLASH_ROUTES["kernel"].n - k0,
+              attention.FLASH_ROUTES["plain"].n - p0)
+    assert routes == _zoo_routes(cfg, t)
+    assert flash_attention.LAUNCHES.n - n0 == routes[0]
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+def test_zoo_kernel_route_raises_without_fallback(dev, monkeypatch):
+    """A launch error of the flash kernel reaches the caller: the route
+    catches nothing and never runs the plain version instead."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models import attention
+
+    def fail(err, name):
+        raise RuntimeError(f"{name}: injected launch failure")
+
+    monkeypatch.setattr(kbuild, "check", fail)
+    q = torch.zeros((1, 8, 2, 64), device=dev)
+    pos = torch.arange(8, device=dev)[None]
+    p0 = attention.FLASH_ROUTES["plain"].n
+    with pytest.raises(RuntimeError, match="injected"):
+        attention.flash_attention(q, q, q, pos, pos, arange_positions=True)
+    assert attention.FLASH_ROUTES["plain"].n == p0
