@@ -117,12 +117,37 @@ Phases, each printing its own line; any failure exits non-zero:
    deepseek's paged greedy token match printed; (c) mixtral and
    recurrentgemma: a prefill at B 1 of exactly the window (kernel) and
    of the window + 512 (the plain banded route), timed.
+8. Training (``repro_torch.train``).  (a) The flash backward
+   (``FlashAttentionFn``'s gradient, ``csrc/flash_attention_bwd.cu``)
+   against its plain version (autograd through the plain forward) at
+   stablelm-3b B 1 T 2048 (bf16 and f32), starcoder2-3b's G 12,
+   gemma-7b's D 256 (B 1 T 2048) and whisper-small's non-causal encoder
+   (B 4 T 1500, a ragged last tile), held to limits from the gradients'
+   magnitudes that two planted faults (the causal mask dropped in dK and
+   dV; the ragged last key tile skipped) must fail; the forward the same
+   bits with and without its log-sum-exp output; timed beside SDPA's
+   backward and its bound.  (b) stablelm-3b at full width, 2 layers, f32:
+   one ``make_train_step`` step on the card against the same step on the
+   CPU, and with 1 and 2 microbatches.  (c) The slice: full-width,
+   full-depth stablelm-3b in bf16 with f32 master weights and AdamW
+   states, remat on, global batch 8 x 2048 in 8 microbatches, 6 steps from
+   ``PrefetchingLoader(SyntheticLMData)``: finite losses and grad norms,
+   every attention call on the kernel route (32 layers x 8 microbatches x
+   2 a step, remat recomputing) and 32 x 8 backward launches a step, the
+   prefetcher drained after ``close``; ms/step, tokens/s, peak memory and
+   the share of 6 N D at the bf16 peak printed; then one more step under
+   torch.profiler: device time by kind and the idle share.  (d) The
+   restart drill at
+   the smoke config on CUDA (a failure injected at step 12 of 20, one
+   restart from the manifest), then ``python -m
+   repro_torch.launch.train --steps 20`` as a subprocess on CUDA.
 
 The line before the last is the ``kernels`` JSON line (each row with
 ``launches_runtime``, its launches in 4c's 2-worker run; the rows of
 another arch name it in ``arch`` and take ``launches`` from its phase 6
 window; flash attention's rows take theirs from the model zoo's prefill of
-their arch, its f32 rows from phase 7's f32 group); the last line is
+their arch, its f32 rows from phase 7's f32 group; the backward's rows
+and the forward's training row take theirs from 8c); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -430,7 +455,7 @@ def _save_counts():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
 
-    counters = [pa.LAUNCHES, pa.LAUNCHES_Q8, fa.LAUNCHES,
+    counters = [pa.LAUNCHES, pa.LAUNCHES_Q8, fa.LAUNCHES, fa.BWD_LAUNCHES,
                 *pa.VARIANT_LAUNCHES.values(), *fa.VARIANT_LAUNCHES.values()]
     return [(ctr, ctr.n) for ctr in counters]
 
@@ -2352,6 +2377,446 @@ def zoo_phase(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 8: train
+#: bf16 flash backward limits, from the gradients' own magnitudes: each of
+#: dQ, dK and dV elementwise within rtol 2e-2 plus 4 bf16 ulps of its max
+#: |want|, and its relative RMS error within this.  The kernel measured
+#: at most 1.4e-3 (the forward's output rounded to bf16 enters Delta; the
+#: plain version keeps it f32), the planted faults 0.14 and above (H100
+#: 80GB HBM3, 700 W)
+BWD_REL_RMS = 5e-3
+#: f32: the same within f32 rounding of sums in another order
+BWD_REL_RMS_F32 = 1e-5
+#: the training slice: global batch, sequence, steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 6
+
+
+def bwd_close(got, want, dtype) -> tuple:
+    """(within the limits above, detail) of one gradient."""
+    got, want = got.float(), want.float()
+    top = want.abs().max().item()
+    rel = BWD_REL_RMS if dtype == torch.bfloat16 else BWD_REL_RMS_F32
+    if dtype == torch.bfloat16:
+        atol, rtol = 4 * 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 7), 2e-2
+    else:
+        atol, rtol = 1e-5 * top, 1e-4
+    close = torch.allclose(got, want, rtol=rtol, atol=atol)
+    rms = ((got - want).norm() / want.norm().clamp(min=1e-30)).item()
+    return close and rms <= rel, f"rel_rms={rms:.3e} (limit {rel:g}), " \
+        f"max_err={(got - want).abs().max().item():.3e} (atol {atol:.2e} " \
+        f"+ rtol {rtol:g}): {close}"
+
+
+def _bwd_plain(q, k, v, do, causal, fault=None):
+    """dQ, dK, dV in f32 from the backward's algebra, with ``fault``: None,
+    ``"dkdv unmasked"`` (the causal mask dropped in dK and dV) or
+    ``"tail tile skipped"`` (the keys of the last ragged 64-key tile left
+    out of every gradient)."""
+    b, t, h, d = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    qf, dof = q.float(), do.float()
+    kf, vf = (x.float().repeat_interleave(g, 2) for x in (k, v))
+    scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    pos = torch.arange(t, device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) if causal else \
+        torch.ones((t, t), dtype=torch.bool, device=q.device)
+    lse = torch.logsumexp(torch.where(mask, s, -math.inf), -1, keepdim=True)
+    p_all = torch.exp(s - lse)
+    p = torch.where(mask, p_all, 0.0)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    delta = torch.einsum("bqhd,bqhd->bhq", dof, o)[..., None]
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    pk = p_all if fault == "dkdv unmasked" else p
+    if fault == "tail tile skipped":
+        keep = pos < t - t % 64
+        p = pk = torch.where(keep, p, 0.0)
+    ds, dsk = p * (dp - delta), pk * (dp - delta)
+    dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = scale * torch.einsum("bhqk,bqhd->bkhd", dsk, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", pk, dof)
+    dk, dv = (x.reshape(b, t, kh, g, d).sum(3) for x in (dk, dv))
+    return dq, dk, dv
+
+
+def check_flash_bwd(b, t, h, kh, d, dtype, causal, gen, dev, tag,
+                    faults=()):
+    """The flash backward (``FlashAttentionFn``'s gradient) against its
+    plain version (autograd through the plain forward), timed beside
+    SDPA's backward on the same tensors and its bound: 10 D flops per
+    visible (query, key) pair and head at the input type's peak, or q, k,
+    v, o, dO, lse and the three gradients once over HBM.  Also: the
+    forward's output the same bits with and without the log-sum-exp, and
+    the log-sum-exp against the plain one.  ``faults``: planted faults of
+    ``_bwd_plain`` that must fail the limits."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+
+    q = torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, t, kh, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, t, kh, d), generator=gen, device=dev).to(dtype)
+    do = torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype)
+    name = (f"flash_attention_bwd {tag}: {str(dtype).split('.')[-1]} "
+            f"{'causal' if causal else 'non-causal'} B={b} T={t} H={h} "
+            f"KH={kh} D={d}")
+    saved = _save_counts()
+    out, lse = fa._forward(q, k, v, causal, with_lse=True)
+    bare = fa.flash_attention(q, k, v, causal=causal)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    n0 = fa.BWD_LAUNCHES.n
+    got = torch.autograd.grad(fa.flash_attention(*leaves, causal=causal),
+                              leaves, do)
+    torch.cuda.synchronize()
+    through_fn = fa.BWD_LAUNCHES.n == n0 + 1
+    want = flash_attention_bwd_ref(q, k, v, do, causal=causal)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     k.float().repeat_interleave(h // kh, 2)) / math.sqrt(d)
+    if causal:
+        pos = torch.arange(t, device=dev)
+        s = torch.where(pos[None, :] <= pos[:, None], s, -math.inf)
+    lse_err = (lse - torch.logsumexp(s, -1)).abs().max().item()
+    del s
+    same = torch.equal(out, bare)
+    checks = [bwd_close(g_, w_, dtype) for g_, w_ in zip(got, want)]
+    finite = all(bool(torch.isfinite(g_).all()) for g_ in got)
+    lse_ok = lse_err <= (1e-4 if dtype == torch.bfloat16 else 1e-5)
+    err = max((g_.float() - w_.float()).abs().max().item()
+              for g_, w_ in zip(got, want))
+    phase(f"{name} vs plain",
+          all(c for c, _ in checks) and finite and same and lse_ok
+          and through_fn,
+          "; ".join(f"d{n}: {det}" for n, (_, det) in zip("qkv", checks))
+          + f"; forward with lse == without: {same}; lse max_err "
+          f"{lse_err:.2e}; through FlashAttentionFn: {through_fn}")
+    for fault in faults:
+        bad = _bwd_plain(q, k, v, do, causal, fault)
+        seen = [bwd_close(g_, w_, dtype) for g_, w_ in zip(bad, want)]
+        phase(f"{name}: planted fault ({fault}) fails the limits",
+              not all(c for c, _ in seen),
+              "; ".join(f"d{n}: {det}" for n, (_, det) in zip("qkv", seen)))
+        del bad
+    del want, got
+    kern = lambda: fa.flash_attention_bwd(q, k, v, out, do, lse,  # noqa: E731
+                                          causal=causal)
+    ms = time_ms(kern, reps=5, warmup=1)
+    device_ms = time_ms(kern, reps=5, warmup=1, graph=True)
+    plain_ms = time_ms(lambda: flash_attention_bwd_ref(q, k, v, do,
+                                                       causal=causal),
+                       reps=2, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                             enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True), reps=5, warmup=1)
+    del lib_out
+    _restore_counts(saved)  # comparison launches do not count
+    pairs = t * (t + 1) // 2 if causal else t * t
+    t_ops = 10 * d * h * b * pairs / PEAK_OPS[dtype] * 1e3
+    t_bytes = ((5 * q.numel() + 4 * k.numel()) * q.element_size()
+               + lse.numel() * 4) / HBM_BPS * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    print(f"  {name}: kernel {ms:.4f} ms (graph replay {device_ms:.4f} ms), "
+          f"plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}) on {gpu_name_and_limit()}", flush=True)
+    return dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, variant="cuda_core")
+
+
+def flash_bwd_phase(gen, dev) -> dict:
+    """8(a): the backward at phase 2's flash shapes at the training length
+    (stablelm-3b in bf16 and f32, starcoder2-3b's G 12, gemma-7b's D 256)
+    and whisper-small's non-causal encoder over 1500 frames (a ragged last
+    tile); the two planted faults; and the forward at the training
+    microbatch's shape for the kernels line."""
+    rows = {
+        "stablelm-3b": check_flash_bwd(1, 2048, 32, 32, 80, torch.bfloat16,
+                                       True, gen, dev, "stablelm-3b train",
+                                       faults=("dkdv unmasked",)),
+        "stablelm-3b f32": check_flash_bwd(1, 2048, 32, 32, 80,
+                                           torch.float32, True, gen, dev,
+                                           "stablelm-3b train"),
+        "starcoder2-3b": check_flash_bwd(1, 2048, 24, 2, 128, torch.bfloat16,
+                                         True, gen, dev, "starcoder2-3b"),
+        "gemma-7b": check_flash_bwd(1, 2048, 16, 16, 256, torch.bfloat16,
+                                    True, gen, dev, "gemma-7b"),
+        "whisper-small": check_flash_bwd(4, 1500, 12, 12, 64, torch.bfloat16,
+                                         False, gen, dev,
+                                         "whisper-small encoder",
+                                         faults=("tail tile skipped",)),
+    }
+    rows["forward"] = check_flash(1, TRAIN_SEQ, 32, 32, 80, torch.bfloat16,
+                                  True, gen, dev, 2e-2,
+                                  "stablelm-3b train microbatch")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _update_rel(p1, p0, ref1) -> float:
+    """||(p1 - p0) - (ref1 - p0)|| / ||ref1 - p0|| over every leaf."""
+    num = den = 0.0
+    for a, z, r in zip(p1, p0, ref1):
+        a, z, r = a.double().cpu(), z.double(), r.double().cpu()
+        num += ((a - z) - (r - z)).square().sum().item()
+        den += (r - z).square().sum().item()
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def train_step_matches_cpu(dev) -> None:
+    """8(b): stablelm-3b at full width, 2 layers, f32, remat on, B 2 S 64:
+    one ``make_train_step`` step on the card (flash forward and backward
+    kernels) against the same step on the CPU (plain route), from the same
+    seeded master weights; then the card's step with 1 and 2 microbatches.
+    Limits: loss and grad norm within 1e-4 relative; the parameter update
+    (new - old, every leaf) within 1e-2 in relative L2: Adam's first step
+    moves each element by about lr * sign(g), so elements whose gradient is
+    near 0 and flips sign between two summation orders move by up to 2 lr
+    (the share of such elements is printed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model, init_params
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.optim import adamw_init, tree_leaves, tree_map
+
+    cfg = get_config("stablelm-3b").scaled(n_layers=2, dtype=torch.float32)
+    base = init_params(cfg, torch.Generator().manual_seed(SEED),
+                       device="cpu", master=True)
+    p0 = tree_leaves(base)
+    batch = SyntheticLMData(cfg.vocab_size, 64, 2, seed=SEED).batch_at(0)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    out = {}
+    for d, n in (("cpu", 1), ("cuda", 1), ("cuda", 2)):
+        c = cfg.scaled(num_microbatches=n)
+        params = tree_map(lambda x: x.to(d, copy=True), base)
+        state = {"params": params, "opt": adamw_init(params)}
+        b0 = fa.BWD_LAUNCHES.n
+        state, m = make_train_step(build_model(c), opt)(state, batch)
+        out[(d, n)] = (float(m["loss"]), float(m["grad_norm"]),
+                       tree_leaves(state["params"]),
+                       fa.BWD_LAUNCHES.n - b0)
+        del state
+    loss0, gn0, ref1, _ = out[("cpu", 1)]
+
+    def agree(key):
+        loss, gn, p1, _ = out[key]
+        rel = _update_rel(p1, p0, ref1)
+        moved = sum(((a.cpu() - r.cpu()).abs() > opt.lr / 10).sum().item()
+                    for a, r in zip(p1, ref1))
+        ok = (abs(loss - loss0) <= 1e-4 * abs(loss0)
+              and abs(gn - gn0) <= 1e-4 * abs(gn0) and rel <= 1e-2)
+        return ok, (f"loss {loss:.6f} vs {loss0:.6f}, grad_norm {gn:.6f} vs "
+                    f"{gn0:.6f}, update rel L2 {rel:.3e} (limit 1e-2), "
+                    f"elements off by more than lr/10: {moved} of "
+                    f"{sum(x.numel() for x in p0)}")
+
+    ok, detail = agree(("cuda", 1))
+    bwd = out[("cuda", 1)][3]
+    phase("8b full-width 2-layer f32 train step: CUDA vs CPU plain path",
+          ok and bwd == cfg.n_layers, detail + f", backward launches {bwd}")
+    ok, detail = agree(("cuda", 2))
+    bwd = out[("cuda", 2)][3]
+    phase("8b the same step on CUDA with 2 microbatches", ok
+          and bwd == 2 * cfg.n_layers, detail + f", backward launches {bwd}")
+    del out, base
+    torch.cuda.empty_cache()
+
+
+def train_slice(dev) -> dict:
+    """8(c): full-width, full-depth stablelm-3b, bf16 with f32 masters and
+    AdamW states, remat on, global batch 8 x 2048 in 8 microbatches, 6
+    steps from ``PrefetchingLoader(SyntheticLMData)``.  Counts zeroed just
+    before the steps and read just after; ms/step, tokens/s, peak memory
+    and the share of 6 N D at the bf16 peak printed; then one more step
+    profiled (``profile_train_step``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import PrefetchingLoader, SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model, count_params
+    from repro_torch.models import attention
+    from repro_torch.train import AdamWConfig, Trainer
+
+    cfg = get_config("stablelm-3b")
+    n_params = count_params(cfg)
+    trainer = Trainer(build_model(cfg), AdamWConfig(lr=1e-4, warmup_steps=2,
+                                                    total_steps=100),
+                      device=dev)
+    state = trainer.init(torch.Generator(device=dev).manual_seed(SEED))
+    loader = PrefetchingLoader(SyntheticLMData(cfg.vocab_size, TRAIN_SEQ,
+                                               TRAIN_BATCH, seed=SEED))
+    metrics, stamps = [], []
+    counters = {"kernel": attention.FLASH_ROUTES["kernel"],
+                "plain": attention.FLASH_ROUTES["plain"],
+                "forward": fa.LAUNCHES, "backward": fa.BWD_LAUNCHES}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for ctr in counters.values():
+        ctr.n = 0
+    t0 = time.perf_counter()
+
+    def on_metrics(step, m):
+        metrics.append(m)
+        stamps.append(time.perf_counter())
+
+    trainer.run(state, loader, steps=TRAIN_STEPS, on_metrics=on_metrics)
+    torch.cuda.synchronize()
+    counts = {k: ctr.n for k, ctr in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loader.close()
+    left = loader.unreclaimed()
+    steps = [float(x) for x in np.diff([t0] + stamps) * 1e3]
+    steady = float(np.mean(steps[1:]))
+    profile_train_step(trainer, state, loader.data.batch_at(TRAIN_STEPS),
+                       steady)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = 6 * n_params * tokens / (steady / 1e3) / PEAK_OPS[torch.bfloat16]
+    per_step = cfg.n_layers * cfg.num_microbatches
+    want = {"kernel": 2 * per_step * TRAIN_STEPS, "plain": 0,
+            "forward": 2 * per_step * TRAIN_STEPS,
+            "backward": per_step * TRAIN_STEPS}
+    finite = all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                 for m in metrics)
+    ok = (finite and len(metrics) == TRAIN_STEPS and counts == want
+          and left == 0)
+    phase(f"8c full-width stablelm-3b ({n_params} parameters) bf16 train, "
+          f"f32 masters, remat, {TRAIN_BATCH} x {TRAIN_SEQ} in "
+          f"{cfg.num_microbatches} microbatches, {TRAIN_STEPS} steps", ok,
+          f"losses {[round(m['loss'], 4) for m in metrics]}, grad norms "
+          f"{[round(m['grad_norm'], 3) for m in metrics]}, counts {counts} "
+          f"(want {want}), prefetch unreclaimed after close {left}")
+    print(f"  8c: ms/step {[round(x, 1) for x in steps]} (steady mean "
+          f"{steady:.1f}), {tokens / (steady / 1e3):.1f} tokens/s, peak "
+          f"{peak:.2f} GiB, 6 N D share of the bf16 peak {mfu:.4f} on "
+          f"{gpu_name_and_limit()}", flush=True)
+    del state, trainer
+    torch.cuda.empty_cache()
+    return dict(counts=counts, ms_per_step=steady, peak_gib=peak)
+
+
+def profile_train_step(trainer, state, batch, step_ms) -> None:
+    """Where a training step's time goes: one more step under
+    torch.profiler, device time by kind against the unprofiled steady
+    step; the device's idle share is 1 - busy / that step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.run(state, iter([batch]), steps=1)
+        torch.cuda.synchronize()
+    groups = {"flash backward": 0.0, "flash forward": 0.0,
+              "GEMM (cuBLAS)": 0.0, "copies": 0.0, "other kernels": 0.0}
+    names: dict = {}
+    for evt in prof.key_averages():
+        if evt.device_type.name != "CUDA":
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        names[evt.key[:60]] = names.get(evt.key[:60], 0.0) + us
+        name = evt.key.lower()
+        if any(t in name for t in ("dkdv_kernel", "dq_kernel",
+                                   "delta_kernel")):
+            groups["flash backward"] += us
+        elif "flash_tile_kernel" in name or "flash_kernel" in name:
+            groups["flash forward"] += us
+        elif "memcpy" in name or "memset" in name:
+            groups["copies"] += us
+        elif any(t in name for t in ("gemm", "xmma", "cutlass", "sm90_",
+                                     "nvjet")):
+            groups["GEMM (cuBLAS)"] += us
+        else:
+            groups["other kernels"] += us
+    _, busy = _device_busy(prof)
+    wall = step_ms / 1e3
+    if busy == 0:
+        print("  8c profile: device time not measured (no CUDA events)")
+        return
+    shares = ", ".join(f"{k} {v / 1e6:.3f} s ({v / 1e6 / wall:.1%})"
+                       for k, v in groups.items())
+    print(f"  8c device time by kind (one profiled step) against the "
+          f"unprofiled {wall:.3f} s step: {shares}; device busy (union of "
+          f"intervals) {busy:.3f} s = {busy / wall:.1%}, idle "
+          f"{1 - busy / wall:.1%}", flush=True)
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
+    print("  8c top device kernels: " + "; ".join(
+        f"{k} {v / 1e3:.1f} ms" for k, v in top), flush=True)
+
+
+def restart_drill(dev) -> None:
+    """8(d): the smoke config on CUDA, a sync ``Checkpointer``, an injected
+    failure at step 12 of 20: ``run_with_restarts`` reaches step 20 with
+    one restart and at most one unreclaimed snapshot generation; then the
+    training CLI as a subprocess on CUDA."""
+    import tempfile
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, Trainer
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.fault_tolerance import run_with_restarts
+
+    cfg = get_smoke_config("stablelm-3b").scaled(num_microbatches=2)
+    data = SyntheticLMData(cfg.vocab_size, 16, 4)
+    armed = {"on": True}
+
+    def batches(step):
+        s = step
+        while True:
+            if armed["on"] and s == 12:
+                armed["on"] = False
+                raise RuntimeError("injected node failure")
+            yield data.batch_at(s)
+            s += 1
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Checkpointer(os.path.join(tmp, "drill"), sync=True)
+        trainer = Trainer(build_model(cfg), AdamWConfig(lr=1e-2,
+                                                        warmup_steps=2,
+                                                        total_steps=50),
+                          checkpointer=ckpt, checkpoint_every=5, device=dev)
+        state = trainer.init(torch.Generator(device=dev).manual_seed(SEED))
+        restarts = []
+        state = run_with_restarts(trainer, state, batches, total_steps=20,
+                                  chunk=10, on_restart=lambda n, e:
+                                  restarts.append(str(e)))
+        step = int(state["opt"]["step"])
+        left = ckpt.unreclaimed_generations()
+        on_card = all(x.is_cuda for x in _leaves(state["params"]))
+        phase("8d restart drill on CUDA (smoke config)",
+              step == 20 and restarts == ["injected node failure"]
+              and left <= 1 and on_card,
+              f"step {step}, restarts {restarts}, unreclaimed generations "
+              f"{left}, state on the card {on_card}")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--steps",
+             "20", "--ckpt-dir", os.path.join(tmp, "cli")], cwd=ROOT,
+            env=env, capture_output=True, text=True, timeout=300)
+        log = proc.stdout + proc.stderr
+        ok = (proc.returncode == 0 and "done: 20 steps" in log
+              and "device=cuda" in log)
+        phase("8d python -m repro_torch.launch.train --steps 20 on CUDA", ok,
+              " | ".join(line for line in log.splitlines()
+                         if line.startswith(("arch=", "loss", "done")))[-400:])
+        if not ok:
+            print(log[-3000:], flush=True)
+
+
+def train_phase(dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    t8 = time.perf_counter()
+    rows = flash_bwd_phase(gen, dev)
+    train_step_matches_cpu(dev)
+    rows["train"] = guarded("8c training slice", train_slice, dev) or {}
+    restart_drill(dev)
+    print(f"  phase 8: {time.perf_counter() - t8:.1f} s", flush=True)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2454,6 +2919,7 @@ def main() -> int:
     t7 = time.perf_counter()
     zoo = zoo_phase(dev)
     print(f"  phase 7: {time.perf_counter() - t7:.1f} s", flush=True)
+    train = train_phase(dev)
 
     # one row per (kernel, main-path shape) under the kernel's own name;
     # the first row of each name is at the shape earlier versions of this
@@ -2582,6 +3048,31 @@ def main() -> int:
         kernels.append(dict(name="flash_attention", case=case, arch=arch,
                             **flash_src, launches=zoo.get(arch, {}).get(
                                 "f32_cuda_core", 0), **row))
+    # phase 8's rows: the backward at each shape, ``launches`` from the
+    # training slice (8c) for its shape and 0 elsewhere; the forward at the
+    # slice's microbatch shape, ``launches`` from 8c (remat runs it twice)
+    counts = train.get("train", {}).get("counts", {})
+    bwd_src = dict(route="cuda", replaces=flash_src["replaces"],
+                   source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu")
+    bwd_cases = {
+        "stablelm-3b": "stablelm-3b train microbatch B 1 T 2048, bf16 causal",
+        "stablelm-3b f32": "stablelm-3b B 1 T 2048, f32 causal",
+        "starcoder2-3b": "starcoder2-3b B 1 T 2048 (G 12, D 128), bf16 causal",
+        "gemma-7b": "gemma-7b B 1 T 2048 (D 256), bf16 causal",
+        "whisper-small": "whisper-small encoder B 4 T 1500, bf16 non-causal",
+    }
+    for key, case in bwd_cases.items():
+        row = dict(name="flash_attention_bwd", case=case, **bwd_src,
+                   launches=counts.get("backward", 0)
+                   if key == "stablelm-3b" else 0, **train[key])
+        if key != "stablelm-3b":
+            row.update(arch=key.split()[0], on_main_path=False)
+        kernels.append(row)
+    kernels.append(dict(name="flash_attention",
+                        case="stablelm-3b train microbatch B 1 T 2048 "
+                        "(8c: forward and remat recompute)", **flash_src,
+                        launches=counts.get("forward", 0),
+                        **train["forward"]))
     # ``launches_runtime``: each row's launches in phase 4c's 2-worker run
     # on 2 shards (bf16 pages), by the row's variant and, for the engine's
     # mixed step, by plan kind

@@ -43,10 +43,12 @@ SIGNATURES = {
                               _I, _I, ctypes.c_float, _P],
     "era_scan_interval": [_P, _P, _P, _P, _P, _I, _I, _P],
     "era_scan_round_trip": [_P, _P, _P, _P, _I, _I, _P],
-    "flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         ctypes.c_float, _P],
-    "flash_attention_tile": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "flash_attention_tile": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              ctypes.c_float, _P],
+    "flash_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
 }
 
 

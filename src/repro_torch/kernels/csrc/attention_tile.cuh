@@ -70,6 +70,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+#include <utility>
+
 namespace attn_tile {
 
 constexpr int kRows = 64;      // query rows per tile, 16 per warp
@@ -100,6 +103,13 @@ __host__ __device__ constexpr size_t smem_bytes() {
          + sizeof(__nv_bfloat16) * 2 * S::kTile              // widened K, V
          + sizeof(float) * kStages * 2 * S::kKeys;           // scale ring
 }
+
+// Whether a source takes the rows' log-sum-exp (store_lse).
+template <class Src, class = void>
+struct HasLse : std::false_type {};
+template <class Src>
+struct HasLse<Src, std::void_t<decltype(std::declval<const Src&>().store_lse(
+                       0, 0.f))>> : std::true_type {};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -188,6 +198,10 @@ __device__ __forceinline__ void widen16(const int8_t* src,
 // warp w owns rows [row0 + 16 w, row0 + 16 w + 16).
 //
 // Src provides, for rows r < src.rows and keys kp < kend:
+//   void store_lse(int r, float lse) -- optional: where present, it is
+//     given each row's log-sum-exp, m + log(l) in natural-log units of
+//     the scaled scores (the flash backward reads it); the output is the
+//     same with or without it
 //   const __nv_bfloat16* q_row(int r); __nv_bfloat16* out_row(int r);
 //   int pos(int r)   -- the row's absolute position (keys <= pos are seen)
 //   const KV* k_row(int kp), v_row(int kp)   -- D contiguous elements
@@ -427,6 +441,11 @@ __device__ __forceinline__ void run(const Src& src, int row0, int kend,
     const int r = row0 + wrow + gid + 8 * i;
     if (r >= src.rows) continue;
     const float inv = 1.f / fmaxf(li, 1e-30f);
+    if constexpr (HasLse<Src>::value) {
+      // m is in log2 units of the scaled scores: back to natural logs
+      if (tig == 0) src.store_lse(r, (m[i] + log2f(fmaxf(li, 1e-30f))) *
+                                         0.6931471805599453f);
+    }
     __nv_bfloat16* dst = src.out_row(r);
 #pragma unroll
     for (int n = 0; n < S::kNTiles; ++n)

@@ -32,6 +32,11 @@
 //    at its last position under the causal mask, and P stays f32.  Bound:
 //    the f32 FMA rate (67 TFLOP/s); each score is a warp-wide butterfly sum,
 //    so it runs far from that.
+//
+// Both variants write each row's log-sum-exp (m + log l, natural logs of
+// the scaled scores) to an optional f32 (B, H, T) array when the caller
+// passes one: the backward (flash_attention_bwd.cu) recomputes P from it.
+// Inference passes null; the output is the same bits either way.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,8 +71,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <typename T, int DPL>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int Tn, int H,
-             int KH, int D, int causal, float scale) {
+             const T* __restrict__ v, T* __restrict__ out,
+             float* __restrict__ lse, int Tn, int H, int KH, int D,
+             int causal, float scale) {
   extern __shared__ float smem[];
   float* ks = smem;                // (kTileK, D)
   float* vs = smem + kTileK * D;   // (kTileK, D)
@@ -151,6 +157,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kRowsPerWarp; ++i) {
     if (lim[i] < 0) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && lane == 0) {
+      const int r = row0 + warp * kRowsPerWarp + i;
+      lse[((size_t)b * H + (size_t)h * G + r % G) * Tn + r / G] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
+    }
 #pragma unroll
     for (int kk = 0; kk < DPL; ++kk) {
       const int d = lane + 32 * kk;
@@ -160,9 +171,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DPL>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Tn, int H, int KH, int D, int causal, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Tn, int H, int KH, int D, int causal,
+           float scale, cudaStream_t stream) {
   const int rows = Tn * (H / KH);
   dim3 grid((rows + kRowsPerBlock - 1) / kRowsPerBlock, KH, B);
   const size_t smem = 2 * (size_t)kTileK * D * sizeof(float);
@@ -173,22 +184,22 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (attr != cudaSuccess) return static_cast<int>(attr);
   flash_kernel<T, DPL><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Tn, H, KH, D, causal,
-      scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Tn, H, KH, D,
+      causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int by_head_dim(const void* q, const void* k, const void* v, void* out, int B,
-                int Tn, int H, int KH, int D, int causal, float scale,
-                cudaStream_t s) {
+int by_head_dim(const void* q, const void* k, const void* v, void* out,
+                float* lse, int B, int Tn, int H, int KH, int D, int causal,
+                float scale, cudaStream_t s) {
   switch ((D + 31) / 32) {
-    case 1: return launch<T, 1>(q, k, v, out, B, Tn, H, KH, D, causal, scale, s);
-    case 2: return launch<T, 2>(q, k, v, out, B, Tn, H, KH, D, causal, scale, s);
-    case 3: return launch<T, 3>(q, k, v, out, B, Tn, H, KH, D, causal, scale, s);
-    case 4: return launch<T, 4>(q, k, v, out, B, Tn, H, KH, D, causal, scale, s);
+    case 1: return launch<T, 1>(q, k, v, out, lse, B, Tn, H, KH, D, causal, scale, s);
+    case 2: return launch<T, 2>(q, k, v, out, lse, B, Tn, H, KH, D, causal, scale, s);
+    case 3: return launch<T, 3>(q, k, v, out, lse, B, Tn, H, KH, D, causal, scale, s);
+    case 4: return launch<T, 4>(q, k, v, out, lse, B, Tn, H, KH, D, causal, scale, s);
     case 5: case 6: case 7: case 8:
-      return launch<T, 8>(q, k, v, out, B, Tn, H, KH, D, causal, scale, s);
+      return launch<T, 8>(q, k, v, out, lse, B, Tn, H, KH, D, causal, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -202,6 +213,7 @@ struct FlashSrc {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   const void* base;
+  float* lse;  // (B, H, T) or null
   int rows, Tn, H, KH, G, D, b, h, causal;
 
   __device__ size_t qoff(int r) const {
@@ -215,6 +227,10 @@ struct FlashSrc {
   }
   __device__ const __nv_bfloat16* k_row(int kp) const { return k + koff(kp); }
   __device__ const __nv_bfloat16* v_row(int kp) const { return v + koff(kp); }
+  __device__ void store_lse(int r, float value) const {
+    if (lse != nullptr)
+      lse[((size_t)b * H + (size_t)h * G + r % G) * Tn + r / G] = value;
+  }
 };
 
 template <int D>
@@ -222,8 +238,8 @@ __global__ void __launch_bounds__(attn_tile::kThreads)
 flash_tile_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ out, int Tn, int H, int KH,
-                  int causal, float scale) {
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                  int Tn, int H, int KH, int causal, float scale) {
   extern __shared__ int4 tile_smem[];
   const int b = blockIdx.z, h = blockIdx.y;
   const int G = H / KH;
@@ -233,15 +249,15 @@ flash_tile_kernel(const __nv_bfloat16* __restrict__ q,
   const int row0 = tile * attn_tile::kRows;
   const int last = min(row0 + attn_tile::kRows, rows) - 1;
   const int kend = causal ? last / G + 1 : Tn;
-  const FlashSrc src{q, out, k, v, k, rows, Tn, H, KH, G, D, b, h, causal};
+  const FlashSrc src{q, out, k, v, k, lse, rows, Tn, H, KH, G, D, b, h, causal};
   attn_tile::run<D, false>(src, row0, kend, scale,
                            reinterpret_cast<char*>(tile_smem));
 }
 
 template <int D>
 int launch_tile(const void* q, const void* k, const void* v, void* out,
-                int B, int Tn, int H, int KH, int causal, float scale,
-                cudaStream_t stream) {
+                float* lse, int B, int Tn, int H, int KH, int causal,
+                float scale, cudaStream_t stream) {
   constexpr size_t smem = attn_tile::smem_bytes<D, false>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_tile_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -252,42 +268,46 @@ int launch_tile(const void* q, const void* k, const void* v, void* out,
   flash_tile_kernel<D><<<grid, attn_tile::kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      Tn, H, KH, causal, scale);
+      lse, Tn, H, KH, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // The CUDA-core walk (variant 2).  dtype: 0 = float32, 1 = bfloat16 (q, k,
-// v and out alike).  Returns the cudaError_t of the launch.
+// v and out alike).  lse: f32 (B, H, T) for the rows' log-sum-exp, or null.
+// Returns the cudaError_t of the launch.
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
-                               const void* v, void* out, int B, int Tn, int H,
-                               int KH, int D, int causal, float scale,
-                               void* stream) {
+                               const void* v, void* out, void* lse, int B,
+                               int Tn, int H, int KH, int D, int causal,
+                               float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (H % KH != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return by_head_dim<float>(q, k, v, out, B, Tn, H, KH, D, causal, scale, s);
+    return by_head_dim<float>(q, k, v, out, l, B, Tn, H, KH, D, causal, scale,
+                              s);
   if (dtype == 1)
-    return by_head_dim<__nv_bfloat16>(q, k, v, out, B, Tn, H, KH, D, causal,
-                                      scale, s);
+    return by_head_dim<__nv_bfloat16>(q, k, v, out, l, B, Tn, H, KH, D,
+                                      causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The tensor-core tile (variant 1): bf16 q, k, v and out; D 64, 80, 128 or
-// 256.
+// 256.  lse as for flash_attention.
 // Returns the cudaError_t of the launch.
 extern "C" int flash_attention_tile(const void* q, const void* k,
-                                    const void* v, void* out, int B, int Tn,
-                                    int H, int KH, int D, int causal,
-                                    float scale, void* stream) {
+                                    const void* v, void* out, void* lse,
+                                    int B, int Tn, int H, int KH, int D,
+                                    int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (H % KH != 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 64: return launch_tile<64>(q, k, v, out, B, Tn, H, KH, causal, scale, s);
-    case 80: return launch_tile<80>(q, k, v, out, B, Tn, H, KH, causal, scale, s);
-    case 128: return launch_tile<128>(q, k, v, out, B, Tn, H, KH, causal, scale, s);
-    case 256: return launch_tile<256>(q, k, v, out, B, Tn, H, KH, causal, scale, s);
+    case 64: return launch_tile<64>(q, k, v, out, l, B, Tn, H, KH, causal, scale, s);
+    case 80: return launch_tile<80>(q, k, v, out, l, B, Tn, H, KH, causal, scale, s);
+    case 128: return launch_tile<128>(q, k, v, out, l, B, Tn, H, KH, causal, scale, s);
+    case 256: return launch_tile<256>(q, k, v, out, l, B, Tn, H, KH, causal, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,4 +1,4 @@
-"""Dense GQA flash attention (forward): the CUDA kernel.
+"""Dense GQA flash attention, forward and backward: the CUDA kernels.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 ``flash_attention_tpu`` (:83).  q (B, T, H, D) attends over k/v
@@ -9,9 +9,18 @@ tiles and takes any T.  ``csrc/flash_attention.cu`` holds two variants
 (design and what bounds each on an H100 are in its header), and
 :func:`choose_variant` picks one: ``"tile"``, the tensor-core tile of
 ``csrc/attention_tile.cuh`` for bf16 at D 64, 80, 128 or 256, or
-``"cuda_core"``, the exact f32 walk (and bf16 at any other D).  This
-module checks the operands and launches the chosen variant on the current
-CUDA stream.  Its plain PyTorch version is ``flash_attention_ref``.
+``"cuda_core"``, the exact f32 walk (and bf16 at any other D).  Its plain
+PyTorch version is ``flash_attention_ref``.
+
+The TPU kernel has no backward (the reference differentiates its jnp
+chunked attention); the port's gradient is ``csrc/flash_attention_bwd.cu``
+(dQ, dK, dV from q, k, v, the output, dO and the forward's row
+log-sum-exp), whose plain version is ``ref.flash_attention_bwd_ref``.
+:func:`flash_attention` runs through :class:`FlashAttentionFn` when
+autograd needs its gradient (grad enabled and an input requiring grad):
+the forward then also writes the log-sum-exp, and the backward launches
+the CUDA backward.  Otherwise it launches the forward alone, without the
+log-sum-exp; the output is the same bits either way.
 
 The model zoo's attention (``models.attention.flash_attention``) launches
 it on CUDA for the self-attention of ``forward``, ``prefill`` and the
@@ -29,8 +38,9 @@ import torch
 from . import build
 from .ref import flash_attention_ref
 
-__all__ = ["flash_attention", "flash_attention_ref", "choose_variant",
-           "LAUNCHES", "VARIANT_LAUNCHES"]
+__all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_ref",
+           "FlashAttentionFn", "choose_variant", "LAUNCHES",
+           "VARIANT_LAUNCHES", "BWD_LAUNCHES"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
@@ -41,6 +51,10 @@ TILE_HEAD_DIMS = (64, 80, 128, 256)
 LAUNCHES = build.Counter()
 #: launches per variant: ``tile`` and ``cuda_core``
 VARIANT_LAUNCHES = {name: build.Counter() for name in ("tile", "cuda_core")}
+#: launches of the backward (``BWD_LAUNCHES.n``), bumped once per call
+#: (its three kernels, ``csrc/flash_attention_bwd.cu``, launch together;
+#: it has one variant, the CUDA-core walk)
+BWD_LAUNCHES = build.Counter()
 
 
 def choose_variant(dtype: torch.dtype, d: int) -> str:
@@ -51,11 +65,11 @@ def choose_variant(dtype: torch.dtype, d: int) -> str:
     return "cuda_core"
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """q (B,T,H,D), k/v (B,T,KH,D) CUDA tensors of one dtype (f32 or bf16),
-    H a multiple of KH, D <= 256.  Returns (B,T,H,D) in q's dtype."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check(q, k, v, **more):
+    """The operands' checks: CUDA, contiguous, 4-D, one dtype of f32 or
+    bf16, k and v (B, T, KH, D) against q (B, T, H, D), H a multiple of
+    KH, D <= 256; ``more`` names other tensors of q's shape."""
+    for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
         if t.ndim != 4 or not t.is_contiguous():
@@ -74,13 +88,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"match q {tuple(q.shape)} (H must divide by KH)")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} exceeds the kernel's {MAX_HEAD_DIM}")
+    for name, x in more.items():
+        if x.shape != q.shape:
+            raise ValueError(f"{name} {tuple(x.shape)} must match q "
+                             f"{tuple(q.shape)}")
+
+
+def _forward(q, k, v, causal: bool, with_lse: bool):
+    """Launch the forward; returns (out, lse or None), lse f32 (B, H, T)."""
+    _check(q, k, v)
+    b, t, h, d = q.shape
+    kh = k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if b == 0 or t == 0:
-        return out
+        return out, lse
     lib = build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     variant = choose_variant(q.dtype, d)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None)
     scale = float(1.0 / math.sqrt(d))
     if variant == "tile":
         err = lib.flash_attention_tile(*ptrs, b, t, h, kh, d, int(causal),
@@ -91,4 +119,62 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     build.check(err, f"flash_attention ({variant})")
     VARIANT_LAUNCHES[variant].bump()
     LAUNCHES.bump()
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True):
+    """dQ, dK, dV of :func:`flash_attention` (the CUDA backward): q, out and
+    dout (B,T,H,D), k/v (B,T,KH,D) CUDA tensors of one dtype, lse the
+    forward's f32 (B, H, T).  Returns (dq, dk, dv) in q's dtype."""
+    _check(q, k, v, out=out, dout=dout)
+    b, t, h, d = q.shape
+    kh = k.shape[2]
+    if (lse.dtype != torch.float32 or lse.shape != (b, h, t)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse must be a contiguous f32 {(b, h, t)} tensor on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)}")
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if b == 0 or t == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    lib = build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_bwd(
+        _DTYPES[q.dtype], *(x.data_ptr() for x in (q, k, v, out, dout, lse,
+                                                    delta, dq, dk, dv)),
+        b, t, h, kh, d, int(causal), float(1.0 / math.sqrt(d)), stream)
+    build.check(err, "flash_attention_bwd")
+    BWD_LAUNCHES.bump()
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The CUDA forward with the CUDA backward as its gradient.  The forward
+    saves q, k, v, the output and the row log-sum-exp; the backward
+    launches ``flash_attention_bwd``.  Both check their operands as
+    :func:`flash_attention` does and raise on what the kernels do not
+    take."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out, lse = _forward(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q (B,T,H,D), k/v (B,T,KH,D) CUDA tensors of one dtype (f32 or bf16),
+    H a multiple of KH, D <= 256.  Returns (B,T,H,D) in q's dtype, with
+    the CUDA backward as its gradient where autograd needs one."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal)
+    return _forward(q, k, v, causal, with_lse=False)[0]

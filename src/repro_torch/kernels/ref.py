@@ -338,3 +338,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.einsum("bkgts,bskd->btkgd", p, v.float())
     o = o / torch.clamp(l, min=1e-30).permute(0, 3, 1, 2, 4)
     return o.reshape(b, t, h, d).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            dout: torch.Tensor, *, causal: bool = True):
+    """dQ, dK, dV of :func:`flash_attention_ref` at ``dout``: autograd
+    through the plain forward (f32 inside, the output rounded to q's
+    dtype), the gradients in the inputs' dtypes.  The plain version of
+    ``csrc/flash_attention_bwd.cu``; the reference trains through autodiff
+    of its jnp attention the same way (``repro/models/attention.py:70``)."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = flash_attention_ref(*leaves, causal=causal)
+        return torch.autograd.grad(out, leaves, dout)

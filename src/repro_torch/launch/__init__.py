@@ -1,1 +1,2 @@
-"""Launch layer of the port: the serving CLI (``launch/serve.py``)."""
+"""Launch layer of the port: the serving CLI (``launch/serve.py``) and the
+training driver (``launch/train.py``)."""

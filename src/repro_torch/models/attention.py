@@ -19,8 +19,12 @@ tensor's values (that would sync the host):
   other case: MLA (D 192 for q and k, Dv 128), cross-attention (Tq != Tk),
   windowed layers past their window, decode, and everything on the CPU.
 
-``FLASH_ROUTES`` counts the calls of each route.  A kernel error raises:
-nothing catches it and nothing falls back.
+``FLASH_ROUTES`` counts the calls of each route; a group that remat
+recomputes in the backward calls again and counts again.  Where autograd
+needs the gradient (training), the kernel route runs through
+``kernels.flash_attention.FlashAttentionFn``, whose backward is the CUDA
+backward kernel; the plain route is differentiated by autograd.  A kernel
+error raises: nothing catches it and nothing falls back.
 
 Decode is a single-token dot against the cache; MLA decode uses the
 absorbed form (q multiplied into W_uk, attention in the 512-wide latent

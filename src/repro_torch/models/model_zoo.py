@@ -19,9 +19,11 @@ class Model:
     cfg: ArchConfig
 
     # -- parameters -------------------------------------------------------
-    def init(self, generator: torch.Generator, device=None) -> Any:
-        """Seeded parameters on ``device`` (default CUDA)."""
-        return init_params(self.cfg, generator, device=device)
+    def init(self, generator: torch.Generator, device=None, *,
+             master: bool = False) -> Any:
+        """Seeded parameters on ``device`` (default CUDA); ``master``: the
+        training storage, every leaf in ``param_dtype``."""
+        return init_params(self.cfg, generator, device=device, master=master)
 
     # -- steps ------------------------------------------------------------
     def forward(self, params, tokens, extra=None):

@@ -9,13 +9,17 @@ are untied, ``frontend/proj`` for a modality stub, and whisper's
 ``encoder`` (stacked layers, learned ``pos``, ``final_norm``) and
 ``dec_pos`` (8192 learned decoder positions).
 
-Storage: a leaf the reference casts to the activation dtype at every use
-(every matmul weight, the embedding and position tables, the conv
-kernels) is stored already cast to ``cfg.dtype``, which is bit-identical
-to the per-call cast and halves its bytes in bf16.  Leaves the reference
-reads in f32 (norm scales and biases, RG-LRU's ``lam``, ``b_a``, ``b_i``,
-the sLSTM's recurrent ``r_gates`` and gate bias, the conv biases, the
-mLSTM's ``b_if`` and ``skip_scale``) stay in ``cfg.param_dtype``.
+Storage, two kinds.  Serving (the default): a leaf the reference casts to
+the activation dtype at every use (every matmul weight, the embedding and
+position tables, the conv kernels) is stored already cast to
+``cfg.dtype``, which is bit-identical to the per-call cast and halves its
+bytes in bf16.  Leaves the reference reads in f32 (norm scales and
+biases, RG-LRU's ``lam``, ``b_a``, ``b_i``, the sLSTM's recurrent
+``r_gates`` and gate bias, the conv biases, the mLSTM's ``b_if`` and
+``skip_scale``) stay in ``cfg.param_dtype``.  Training (``master=True``):
+every leaf in ``cfg.param_dtype``, the reference's f32 master weights;
+the model casts each at its use (``layers.matmul`` and the embedding
+casts), so gradients reach the f32 copy that AdamW updates.
 """
 
 from __future__ import annotations
@@ -201,7 +205,11 @@ def leaves(tree, path=()):
         yield path, tree
 
 
-def storage_dtype(cfg, kind: str) -> torch.dtype:
+def storage_dtype(cfg, kind: str, master: bool = False) -> torch.dtype:
+    """A leaf's dtype: ``cfg.param_dtype`` for every leaf of the training
+    storage (``master``), else ``cfg.dtype`` for the kinds cast at use."""
+    if master:
+        return cfg.param_dtype
     return cfg.dtype if kind in _ACTIVATION_KINDS else cfg.param_dtype
 
 
@@ -240,8 +248,10 @@ def _draw(kind, shape, fan_in, gen, dev) -> torch.Tensor:
     return torch.zeros(shape, device=dev)
 
 
-def init_params(cfg, generator: torch.Generator, device=None) -> Params:
-    """Seeded random parameters on ``device`` (default CUDA).
+def init_params(cfg, generator: torch.Generator, device=None, *,
+                master: bool = False) -> Params:
+    """Seeded random parameters on ``device`` (default CUDA), in the
+    serving storage or, with ``master``, every leaf in ``param_dtype``.
 
     The distributions are the reference's (lecun-normal dense weights,
     unit-normal embedding, std-0.02 conv kernels and position tables, zero
@@ -255,7 +265,8 @@ def init_params(cfg, generator: torch.Generator, device=None) -> Params:
 
     def leaf(path, spec):
         shape, kind = spec
-        out = torch.empty(shape, dtype=storage_dtype(cfg, kind), device=dev)
+        out = torch.empty(shape, dtype=storage_dtype(cfg, kind, master),
+                          device=dev)
         inner = shape[-_DRAWN_DIMS.get(kind, 1):]
         fan_in = math.prod(shape[-3:-1] if kind == "expert" else shape[-2:-1])
         rows = out.view(-1, *inner)
@@ -266,10 +277,12 @@ def init_params(cfg, generator: torch.Generator, device=None) -> Params:
     return _map(_shapes(cfg), leaf)
 
 
-def from_jax_params(cfg, tree: Params, device=None) -> Params:
+def from_jax_params(cfg, tree: Params, device=None, *,
+                    master: bool = False) -> Params:
     """Carry a reference parameter pytree (nested dicts of NumPy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) onto ``device`` (default CUDA),
-    with the same keys, shapes and storage dtypes as :func:`init_params`."""
+    with the same keys, shapes and storage dtypes as :func:`init_params`
+    (``master``: every leaf in ``param_dtype``)."""
     dev = resolve_device(device)
 
     def leaf(path, spec):
@@ -282,6 +295,6 @@ def from_jax_params(cfg, tree: Params, device=None) -> Params:
             raise ValueError(f"{'/'.join(path)}: shape {arr.shape}, "
                              f"expected {shape}")
         return torch.from_numpy(arr.astype(np.float32)).to(
-            dev, storage_dtype(cfg, kind))
+            dev, storage_dtype(cfg, kind, master))
 
     return _map(_shapes(cfg), leaf)

@@ -1,6 +1,7 @@
 """Model assembly (``repro.models.transformer``): decoder-only LMs and the
-whisper encoder-decoder, for inference — ``forward``, ``lm_loss``,
-``init_cache``, ``prefill`` and ``decode_step``.
+whisper encoder-decoder — ``forward`` and ``lm_loss`` (differentiable, for
+training and inference), ``init_cache``, ``prefill`` and ``decode_step``
+(inference, under ``no_grad``).
 
 The stack is ``n_groups`` repetitions of ``cfg.block_pattern`` with every
 parameter stacked along a leading group axis, as in the reference; where
@@ -15,6 +16,16 @@ sharding constraints have no counterpart: the port has no mesh.
 (``arange_positions=True``), which is what lets their self-attention take
 the CUDA flash kernel.  ``decode_step`` updates the cache in place and
 returns it.
+
+``forward`` builds an autograd graph only where a parameter requires grad
+(the trainer's); serving and the zoo's inference callers pass parameters
+that do not, so they run without one.  With ``cfg.remat`` and grad
+enabled, each group of the block pattern runs under
+``torch.utils.checkpoint`` (non-reentrant): its activations are recomputed
+in the backward, as the reference's ``jax.checkpoint(group_fn)``
+(``repro/models/transformer.py:266-267``).  The recompute runs the group's
+forward again, so a flash call there counts in ``attention.FLASH_ROUTES``
+(and the kernel's ``LAUNCHES``) a second time.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 
@@ -135,24 +147,33 @@ def _logits(cfg, params, x):
     return unembed(cfg, head, x)
 
 
-@torch.no_grad()
+def _group(cfg, gp, x, positions, enc_out, enc_pos):
+    """One group of the block pattern (the reference's ``_group_train``)."""
+    for j, kind in enumerate(cfg.block_pattern):
+        bp = gp[f"b{j}_{kind}"]
+        cross_kv = (_cross_kv(cfg, bp, enc_out, enc_pos)
+                    if enc_out is not None else None)
+        x = _mix_train(cfg, kind, bp, x, positions, cross_kv)
+    return x
+
+
 def forward(cfg, params, tokens: torch.Tensor,
             extra: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     """Full-sequence logits.  tokens: (B, S) -> (B, S, V) f32."""
     extra = extra or {}
     x, enc_out, enc_pos = _embed(cfg, params, tokens, extra)
     positions = _positions(*tokens.shape, tokens.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for g in range(cfg.n_groups):
         gp = index_tree(params["groups"], g)
-        for j, kind in enumerate(cfg.block_pattern):
-            bp = gp[f"b{j}_{kind}"]
-            cross_kv = (_cross_kv(cfg, bp, enc_out, enc_pos)
-                        if enc_out is not None else None)
-            x = _mix_train(cfg, kind, bp, x, positions, cross_kv)
+        if remat:
+            x = checkpoint(_group, cfg, gp, x, positions, enc_out, enc_pos,
+                           use_reentrant=False)
+        else:
+            x = _group(cfg, gp, x, positions, enc_out, enc_pos)
     return _logits(cfg, params, x)
 
 
-@torch.no_grad()
 def lm_loss(cfg, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Next-token cross-entropy; batch: tokens (B,S), labels (B,S) (-1 = pad)."""
     logits = forward(cfg, params, batch["tokens"],

@@ -961,3 +961,145 @@ def test_zoo_kernel_route_raises_without_fallback(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="injected"):
         attention.flash_attention(q, q, q, pos, pos, arange_positions=True)
     assert attention.FLASH_ROUTES["plain"].n == p0
+
+
+# ------------------------------------------------ flash backward (training)
+#: (B, T, H, KH, D, causal): chip_smoke phase 8(a)'s shapes and small
+#: ragged ones (T not a multiple of the 64- or 32-row tile, D off the tile
+#: dims, GQA and MQA)
+BWD_SHAPES = [
+    (1, 2048, 32, 32, 80, True),   # stablelm-3b training microbatch
+    (1, 2048, 24, 2, 128, True),   # starcoder2-3b (G 12)
+    (1, 2048, 16, 16, 256, True),  # gemma-7b (D 256)
+    (4, 1500, 12, 12, 64, False),  # whisper-small encoder, ragged tail
+    (2, 100, 8, 2, 48, True),      # GQA 4, D off the tile dims, ragged
+    (1, 77, 4, 1, 160, False),     # MQA, D 160 (32-row tiles), ragged
+    (3, 3, 2, 2, 32, True),        # three tokens, one partial tile
+]
+
+
+def _bwd_limit(got, want, dtype):
+    """The phase 8(a) limits: bf16 within rtol 2e-2 plus 4 ulps of max
+    |want| and relative RMS 5e-3; f32 within rtol 1e-4 plus 1e-5 of max
+    |want| and relative RMS 1e-5."""
+    got, want = got.float(), want.float()
+    top = want.abs().max().item()
+    if dtype == torch.bfloat16:
+        atol = 4 * 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 7)
+        rtol, rel = 2e-2, 5e-3
+    else:
+        atol, rtol, rel = 1e-5 * top, 1e-4, 1e-5
+    rms = ((got - want).norm() / want.norm().clamp(min=1e-30)).item()
+    return torch.allclose(got, want, rtol=rtol, atol=atol) and rms <= rel
+
+
+def _bwd_inputs(b, t, h, kh, d, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(dev).to(dtype)
+            for s in ((b, t, h, d), (b, t, kh, d), (b, t, kh, d),
+                      (b, t, h, d))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,h,kh,d,causal", BWD_SHAPES)
+def test_flash_bwd_matches_plain(dev, dtype, b, t, h, kh, d, causal):
+    """``FlashAttentionFn``'s gradients (the CUDA backward) against
+    ``flash_attention_bwd_ref`` (autograd through the plain forward)."""
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+
+    q, k, v, do = _bwd_inputs(b, t, h, kh, d, dtype, dev, seed=t + h + d)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    n0, f0 = flash_attention.BWD_LAUNCHES.n, flash_attention.LAUNCHES.n
+    out = flash_attention.flash_attention(*leaves, causal=causal)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert flash_attention.BWD_LAUNCHES.n == n0 + 1
+    assert flash_attention.LAUNCHES.n == f0 + 1
+    want = flash_attention_bwd_ref(q, k, v, do, causal=causal)
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape
+        assert torch.isfinite(g).all()
+        assert _bwd_limit(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,h,kh,d,causal", [
+    (1, 300, 32, 32, 80, True), (2, 130, 8, 2, 256, False),
+    (2, 100, 8, 2, 48, True)])
+def test_flash_forward_with_lse_is_the_same(dev, dtype, b, t, h, kh, d,
+                                            causal):
+    """The forward writes the rows' log-sum-exp only when asked; its output
+    is the same bits either way, and the log-sum-exp is the plain one."""
+    q, k, v, _ = _bwd_inputs(b, t, h, kh, d, dtype, dev, seed=t)
+    out, lse = flash_attention._forward(q, k, v, causal, with_lse=True)
+    bare = flash_attention.flash_attention(q, k, v, causal=causal)
+    assert torch.equal(out, bare)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     k.float().repeat_interleave(h // kh, 2)) / math.sqrt(d)
+    if causal:
+        pos = torch.arange(t, device=dev)
+        s = torch.where(pos[None, :] <= pos[:, None], s, -math.inf)
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-5,
+                               atol=1e-4)
+
+
+def test_flash_bwd_refuses_bad_operands(dev):
+    q, k, v, do = _bwd_inputs(1, 16, 4, 2, 32, torch.float32, dev, seed=1)
+    out, lse = flash_attention._forward(q, k, v, True, with_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention.flash_attention_bwd(q, k, v, out, do, lse.double())
+    with pytest.raises(ValueError, match="dout"):
+        flash_attention.flash_attention_bwd(q, k, v, out, do[:, :8], lse)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention_bwd(q, k, v, out, do.cpu(), lse)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_on_the_card(dev, remat):
+    """A smoke-size f32 train step on the card: every master leaf gets a
+    gradient (none left at zero: the kernel route keeps the graph), it
+    matches the CPU's within 1e-3 of each leaf's largest, the flash
+    forward and backward launch once per layer (twice forward with
+    remat), and the step updates every parameter and drops the grads."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import attention, build_model
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.optim import adamw_init, tree_items, tree_map
+    from repro_torch.train.trainer import bind_grads
+
+    cfg = get_smoke_config("stablelm-3b").scaled(remat=remat)
+    model = build_model(cfg)
+    base = model.init(torch.Generator().manual_seed(0), device="cpu",
+                      master=True)
+    batch = {k: torch.from_numpy(v) for k, v in
+             SyntheticLMData(cfg.vocab_size, 24, 2).batch_at(0).items()}
+    grads = {}
+    for d in ("cpu", dev):
+        params = tree_map(lambda x: x.to(d, copy=True), base)
+        live = bind_grads(params)
+        k0, b0 = attention.FLASH_ROUTES["kernel"].n, \
+            flash_attention.BWD_LAUNCHES.n
+        model.loss(live, {k: v.to(d) for k, v in batch.items()}).backward()
+        if d == dev:
+            torch.cuda.synchronize()
+            fwd = attention.FLASH_ROUTES["kernel"].n - k0
+            assert fwd == cfg.n_layers * (2 if remat else 1)
+            assert flash_attention.BWD_LAUNCHES.n - b0 == cfg.n_layers
+        grads[str(d)] = [(path, p.grad.cpu()) for path, p in
+                         tree_items(params)]
+    for (path, g), (_, w) in zip(grads[str(dev)], grads["cpu"]):
+        assert g.abs().max() > 0, path
+        torch.testing.assert_close(g, w, rtol=1e-3,
+                                   atol=1e-3 * w.abs().max().item(),
+                                   msg="/".join(path))
+    params = tree_map(lambda x: x.to(dev, copy=True), base)
+    state = {"params": params, "opt": adamw_init(params)}
+    state, m = make_train_step(model, AdamWConfig(lr=1e-2, warmup_steps=1))(
+        state, batch)
+    assert torch.isfinite(m["loss"]) and int(state["opt"]["step"]) == 1
+    for (path, p), (_, p0) in zip(tree_items(state["params"]),
+                                  tree_items(base)):
+        assert p.grad is None and p.is_cuda
+        assert not torch.equal(p.cpu(), p0), path
