@@ -126,15 +126,20 @@ Phases, each printing its own line; any failure exits non-zero:
    magnitudes that two planted faults (the causal mask dropped in dK and
    dV; the ragged last key tile skipped) must fail; the forward the same
    bits with and without its log-sum-exp output; timed beside SDPA's
-   backward and its bound.  (b) stablelm-3b at full width, 2 layers, f32:
-   one ``make_train_step`` step on the card against the same step on the
-   CPU, and with 1 and 2 microbatches.  (c) The slice: full-width,
+   backward and its bound.  At each bf16 shape both variants are held and
+   timed in the same run: the tensor-core tile (the route) and the
+   CUDA-core walk (forced), each two calls the same bits; at starcoder2-3b
+   also the tile without its GQA split.  (b) stablelm-3b at full width, 2
+   layers, f32: one ``make_train_step`` step on the card against the same
+   step on the CPU, and with 1 and 2 microbatches, every backward call on
+   the CUDA-core walk.  (c) The slice: full-width,
    full-depth stablelm-3b in bf16 with f32 master weights and AdamW
    states, remat on, global batch 8 x 2048 in 8 microbatches, 6 steps from
    ``PrefetchingLoader(SyntheticLMData)``: finite losses and grad norms,
    every attention call on the kernel route (32 layers x 8 microbatches x
-   2 a step, remat recomputing) and 32 x 8 backward launches a step, the
-   prefetcher drained after ``close``; ms/step, tokens/s, peak memory and
+   2 a step, remat recomputing) and 32 x 8 backward launches a step, all
+   on the tensor-core tile and none on the walk, the prefetcher drained
+   after ``close``; ms/step, tokens/s, peak memory and
    the share of 6 N D at the bf16 peak printed; then one more step under
    torch.profiler: device time by kind and the idle share.  (d) The
    restart drill at
@@ -146,8 +151,8 @@ The line before the last is the ``kernels`` JSON line (each row with
 ``launches_runtime``, its launches in 4c's 2-worker run; the rows of
 another arch name it in ``arch`` and take ``launches`` from its phase 6
 window; flash attention's rows take theirs from the model zoo's prefill of
-their arch, its f32 rows from phase 7's f32 group; the backward's rows
-and the forward's training row take theirs from 8c); the last line is
+their arch, its f32 rows from phase 7's f32 group; the backward's rows,
+one per variant, and the forward's training row take theirs from 8c); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -456,7 +461,8 @@ def _save_counts():
     from repro_torch.kernels import paged_attention as pa
 
     counters = [pa.LAUNCHES, pa.LAUNCHES_Q8, fa.LAUNCHES, fa.BWD_LAUNCHES,
-                *pa.VARIANT_LAUNCHES.values(), *fa.VARIANT_LAUNCHES.values()]
+                *pa.VARIANT_LAUNCHES.values(), *fa.VARIANT_LAUNCHES.values(),
+                *fa.BWD_VARIANT_LAUNCHES.values()]
     return [(ctr, ctr.n) for ctr in counters]
 
 
@@ -2446,10 +2452,14 @@ def check_flash_bwd(b, t, h, kh, d, dtype, causal, gen, dev, tag,
     plain version (autograd through the plain forward), timed beside
     SDPA's backward on the same tensors and its bound: 10 D flops per
     visible (query, key) pair and head at the input type's peak, or q, k,
-    v, o, dO, lse and the three gradients once over HBM.  Also: the
-    forward's output the same bits with and without the log-sum-exp, and
-    the log-sum-exp against the plain one.  ``faults``: planted faults of
-    ``_bwd_plain`` that must fail the limits."""
+    v, o, dO, lse and the three gradients once over HBM.  Where the route
+    takes the tensor-core tile (bf16), the CUDA-core walk is forced through
+    ``flash_attention_bwd``'s ``variant`` on the same inputs, held to the
+    same limits and timed in the same run (at a GQA split, the tile also
+    unsplit).  Also: the forward's output the same bits with and without
+    the log-sum-exp, the log-sum-exp against the plain one, two calls of
+    each variant the same bits.  ``faults``: planted faults of
+    ``_bwd_plain`` that must fail the limits.  Returns a row per variant."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_bwd_ref
@@ -2462,14 +2472,18 @@ def check_flash_bwd(b, t, h, kh, d, dtype, causal, gen, dev, tag,
             f"{'causal' if causal else 'non-causal'} B={b} T={t} H={h} "
             f"KH={kh} D={d}")
     saved = _save_counts()
+    route = fa.choose_bwd_variant(dtype, d)
+    variants = [route] + [x for x in fa.BWD_VARIANT_LAUNCHES if x != route
+                          and route == "tile"]
     out, lse = fa._forward(q, k, v, causal, with_lse=True)
     bare = fa.flash_attention(q, k, v, causal=causal)
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    n0 = fa.BWD_LAUNCHES.n
+    n0, r0 = fa.BWD_LAUNCHES.n, fa.BWD_VARIANT_LAUNCHES[route].n
     got = torch.autograd.grad(fa.flash_attention(*leaves, causal=causal),
                               leaves, do)
     torch.cuda.synchronize()
-    through_fn = fa.BWD_LAUNCHES.n == n0 + 1
+    through_fn = (fa.BWD_LAUNCHES.n == n0 + 1
+                  and fa.BWD_VARIANT_LAUNCHES[route].n == r0 + 1)
     want = flash_attention_bwd_ref(q, k, v, do, causal=causal)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                      k.float().repeat_interleave(h // kh, 2)) / math.sqrt(d)
@@ -2479,17 +2493,29 @@ def check_flash_bwd(b, t, h, kh, d, dtype, causal, gen, dev, tag,
     lse_err = (lse - torch.logsumexp(s, -1)).abs().max().item()
     del s
     same = torch.equal(out, bare)
-    checks = [bwd_close(g_, w_, dtype) for g_, w_ in zip(got, want)]
-    finite = all(bool(torch.isfinite(g_).all()) for g_ in got)
     lse_ok = lse_err <= (1e-4 if dtype == torch.bfloat16 else 1e-5)
-    err = max((g_.float() - w_.float()).abs().max().item()
-              for g_, w_ in zip(got, want))
-    phase(f"{name} vs plain",
-          all(c for c, _ in checks) and finite and same and lse_ok
-          and through_fn,
-          "; ".join(f"d{n}: {det}" for n, (_, det) in zip("qkv", checks))
-          + f"; forward with lse == without: {same}; lse max_err "
-          f"{lse_err:.2e}; through FlashAttentionFn: {through_fn}")
+    errs = {}
+    for variant in variants:
+        if variant != route:
+            got = fa.flash_attention_bwd(q, k, v, out, do, lse,
+                                         causal=causal, variant=variant)
+        again = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
+                                       variant=variant)
+        bits = all(torch.equal(a, c) for a, c in zip(got, again))
+        checks = [bwd_close(g_, w_, dtype) for g_, w_ in zip(got, want)]
+        finite = all(bool(torch.isfinite(g_).all()) for g_ in got)
+        errs[variant] = max((g_.float() - w_.float()).abs().max().item()
+                            for g_, w_ in zip(got, want))
+        how = ("through FlashAttentionFn" if variant == route
+               else "forced through variant=")
+        phase(f"{name} [{variant}] vs plain",
+              all(c for c, _ in checks) and finite and same and lse_ok
+              and through_fn and bits,
+              "; ".join(f"d{n}: {det}" for n, (_, det) in zip("qkv", checks))
+              + f"; two calls the same bits: {bits}; forward with lse == "
+              f"without: {same}; lse max_err {lse_err:.2e}; {how}: "
+              f"{through_fn}")
+        del got, again
     for fault in faults:
         bad = _bwd_plain(q, k, v, do, causal, fault)
         seen = [bwd_close(g_, w_, dtype) for g_, w_ in zip(bad, want)]
@@ -2497,11 +2523,17 @@ def check_flash_bwd(b, t, h, kh, d, dtype, causal, gen, dev, tag,
               not all(c for c, _ in seen),
               "; ".join(f"d{n}: {det}" for n, (_, det) in zip("qkv", seen)))
         del bad
-    del want, got
-    kern = lambda: fa.flash_attention_bwd(q, k, v, out, do, lse,  # noqa: E731
-                                          causal=causal)
-    ms = time_ms(kern, reps=5, warmup=1)
-    device_ms = time_ms(kern, reps=5, warmup=1, graph=True)
+    del want
+    times = {}
+    for variant in variants:
+        kern = lambda: fa.flash_attention_bwd(  # noqa: E731
+            q, k, v, out, do, lse, causal=causal, variant=variant)
+        times[variant] = (time_ms(kern, reps=5, warmup=1),
+                          time_ms(kern, reps=5, warmup=1, graph=True))
+    unsplit = None
+    if route == "tile" and fa.bwd_splits(b, t, kh, h // kh, d) > 1:
+        unsplit = time_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, out, do, lse, causal=causal, splits=1), reps=5, warmup=1)
     plain_ms = time_ms(lambda: flash_attention_bwd_ref(q, k, v, do,
                                                        causal=causal),
                        reps=2, warmup=1)
@@ -2519,12 +2551,23 @@ def check_flash_bwd(b, t, h, kh, d, dtype, causal, gen, dev, tag,
     t_bytes = ((5 * q.numel() + 4 * k.numel()) * q.element_size()
                + lse.numel() * 4) / HBM_BPS * 1e3
     bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    print(f"  {name}: kernel {ms:.4f} ms (graph replay {device_ms:.4f} ms), "
-          f"plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, bound "
-          f"{bound:.4f} ms ({by}) on {gpu_name_and_limit()}", flush=True)
-    return dict(max_abs_err=err, ms=ms, device_ms=device_ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=lib_ms, variant="cuda_core")
+    rows = {}
+    for variant in variants:
+        ms, device_ms = times[variant]
+        rows[variant] = dict(max_abs_err=errs[variant], ms=ms,
+                             device_ms=device_ms, plain_ms=plain_ms,
+                             bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                             variant=variant)
+        extra = ""
+        if variant == "tile" and unsplit is not None:
+            rows[variant]["ms_unsplit"] = unsplit
+            extra = (f" ({fa.bwd_splits(b, t, kh, h // kh, d)} splits; "
+                     f"unsplit {unsplit:.4f} ms)")
+        print(f"  {name} [{variant}]: kernel {ms:.4f} ms{extra} (graph "
+              f"replay {device_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
+              f"backward {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}) on "
+              f"{gpu_name_and_limit()}", flush=True)
+    return rows
 
 
 def flash_bwd_phase(gen, dev) -> dict:
@@ -2595,15 +2638,18 @@ def train_step_matches_cpu(dev) -> None:
         params = tree_map(lambda x: x.to(d, copy=True), base)
         state = {"params": params, "opt": adamw_init(params)}
         b0 = fa.BWD_LAUNCHES.n
+        v0 = {x: ctr.n for x, ctr in fa.BWD_VARIANT_LAUNCHES.items()}
         state, m = make_train_step(build_model(c), opt)(state, batch)
         out[(d, n)] = (float(m["loss"]), float(m["grad_norm"]),
                        tree_leaves(state["params"]),
-                       fa.BWD_LAUNCHES.n - b0)
+                       fa.BWD_LAUNCHES.n - b0,
+                       {x: ctr.n - v0[x]
+                        for x, ctr in fa.BWD_VARIANT_LAUNCHES.items()})
         del state
-    loss0, gn0, ref1, _ = out[("cpu", 1)]
+    loss0, gn0, ref1, _, _ = out[("cpu", 1)]
 
     def agree(key):
-        loss, gn, p1, _ = out[key]
+        loss, gn, p1, _, _ = out[key]
         rel = _update_rel(p1, p0, ref1)
         moved = sum(((a.cpu() - r.cpu()).abs() > opt.lr / 10).sum().item()
                     for a, r in zip(p1, ref1))
@@ -2614,14 +2660,17 @@ def train_step_matches_cpu(dev) -> None:
                     f"elements off by more than lr/10: {moved} of "
                     f"{sum(x.numel() for x in p0)}")
 
+    # f32: every backward call on the CUDA-core walk, none on the tile
     ok, detail = agree(("cuda", 1))
-    bwd = out[("cuda", 1)][3]
+    bwd, by = out[("cuda", 1)][3:]
     phase("8b full-width 2-layer f32 train step: CUDA vs CPU plain path",
-          ok and bwd == cfg.n_layers, detail + f", backward launches {bwd}")
+          ok and bwd == cfg.n_layers == by["cuda_core"] and by["tile"] == 0,
+          detail + f", backward launches {bwd} (by variant {by})")
     ok, detail = agree(("cuda", 2))
-    bwd = out[("cuda", 2)][3]
+    bwd, by = out[("cuda", 2)][3:]
     phase("8b the same step on CUDA with 2 microbatches", ok
-          and bwd == 2 * cfg.n_layers, detail + f", backward launches {bwd}")
+          and bwd == 2 * cfg.n_layers == by["cuda_core"] and by["tile"] == 0,
+          detail + f", backward launches {bwd} (by variant {by})")
     del out, base
     torch.cuda.empty_cache()
 
@@ -2651,7 +2700,9 @@ def train_slice(dev) -> dict:
     metrics, stamps = [], []
     counters = {"kernel": attention.FLASH_ROUTES["kernel"],
                 "plain": attention.FLASH_ROUTES["plain"],
-                "forward": fa.LAUNCHES, "backward": fa.BWD_LAUNCHES}
+                "forward": fa.LAUNCHES, "backward": fa.BWD_LAUNCHES,
+                "backward tile": fa.BWD_VARIANT_LAUNCHES["tile"],
+                "backward cuda_core": fa.BWD_VARIANT_LAUNCHES["cuda_core"]}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for ctr in counters.values():
@@ -2677,7 +2728,8 @@ def train_slice(dev) -> dict:
     per_step = cfg.n_layers * cfg.num_microbatches
     want = {"kernel": 2 * per_step * TRAIN_STEPS, "plain": 0,
             "forward": 2 * per_step * TRAIN_STEPS,
-            "backward": per_step * TRAIN_STEPS}
+            "backward": per_step * TRAIN_STEPS,
+            "backward tile": per_step * TRAIN_STEPS, "backward cuda_core": 0}
     finite = all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                  for m in metrics)
     ok = (finite and len(metrics) == TRAIN_STEPS and counts == want
@@ -2717,8 +2769,9 @@ def profile_train_step(trainer, state, batch, step_ms) -> None:
             us = getattr(evt, "self_cuda_time_total", 0.0)
         names[evt.key[:60]] = names.get(evt.key[:60], 0.0) + us
         name = evt.key.lower()
-        if any(t in name for t in ("dkdv_kernel", "dq_kernel",
-                                   "delta_kernel")):
+        if any(t in name for t in ("dkdv_tile_kernel", "dq_tile_kernel",
+                                   "split_sum_kernel", "dkdv_kernel",
+                                   "dq_kernel", "delta_kernel")):
             groups["flash backward"] += us
         elif "flash_tile_kernel" in name or "flash_kernel" in name:
             groups["flash forward"] += us
@@ -3061,13 +3114,19 @@ def main() -> int:
         "gemma-7b": "gemma-7b B 1 T 2048 (D 256), bf16 causal",
         "whisper-small": "whisper-small encoder B 4 T 1500, bf16 non-causal",
     }
+    # one row per variant: the tile where bf16 routes to it, and the
+    # CUDA-core walk (f32's route, and bf16's control, timed in the same
+    # run); ``launches`` by variant from 8c
     for key, case in bwd_cases.items():
-        row = dict(name="flash_attention_bwd", case=case, **bwd_src,
-                   launches=counts.get("backward", 0)
-                   if key == "stablelm-3b" else 0, **train[key])
-        if key != "stablelm-3b":
-            row.update(arch=key.split()[0], on_main_path=False)
-        kernels.append(row)
+        for variant, timed in train[key].items():
+            row = dict(name="flash_attention_bwd", case=case, **bwd_src,
+                       launches=counts.get(f"backward {variant}", 0)
+                       if key == "stablelm-3b" else 0, **timed)
+            if key != "stablelm-3b":
+                row.update(arch=key.split()[0], on_main_path=False)
+            elif variant != "tile":
+                row.update(on_main_path=False)
+            kernels.append(row)
     kernels.append(dict(name="flash_attention",
                         case="stablelm-3b train microbatch B 1 T 2048 "
                         "(8c: forward and remat recompute)", **flash_src,

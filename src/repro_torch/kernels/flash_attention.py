@@ -15,7 +15,16 @@ PyTorch version is ``flash_attention_ref``.
 The TPU kernel has no backward (the reference differentiates its jnp
 chunked attention); the port's gradient is ``csrc/flash_attention_bwd.cu``
 (dQ, dK, dV from q, k, v, the output, dO and the forward's row
-log-sum-exp), whose plain version is ``ref.flash_attention_bwd_ref``.
+log-sum-exp), whose plain version is ``ref.flash_attention_bwd_ref``.  It
+has two variants too, picked by :func:`choose_bwd_variant`: ``"tile"``,
+tensor-core tiles (``mma.sync`` fed by ``cp.async``) for bf16 at D 64, 80,
+128 or 256, which round P and dS to bf16 for their products and keep S,
+dP, the exponentials and every sum in f32; or ``"cuda_core"``, the f32
+walk (and bf16 at any other D).  Neither uses atomics, so two calls on the
+same inputs give the same bits.  Where a GQA grid has too few dK/dV blocks
+to fill the card, :func:`bwd_splits` spreads each kv head's query heads
+over several blocks whose f32 partials one more kernel sums in a fixed
+order.
 :func:`flash_attention` runs through :class:`FlashAttentionFn` when
 autograd needs its gradient (grad enabled and an input requiring grad):
 the forward then also writes the log-sum-exp, and the backward launches
@@ -39,8 +48,9 @@ from . import build
 from .ref import flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_ref",
-           "FlashAttentionFn", "choose_variant", "LAUNCHES",
-           "VARIANT_LAUNCHES", "BWD_LAUNCHES"]
+           "FlashAttentionFn", "choose_variant", "choose_bwd_variant",
+           "bwd_splits", "LAUNCHES", "VARIANT_LAUNCHES", "BWD_LAUNCHES",
+           "BWD_VARIANT_LAUNCHES"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
@@ -52,9 +62,14 @@ LAUNCHES = build.Counter()
 #: launches per variant: ``tile`` and ``cuda_core``
 VARIANT_LAUNCHES = {name: build.Counter() for name in ("tile", "cuda_core")}
 #: launches of the backward (``BWD_LAUNCHES.n``), bumped once per call
-#: (its three kernels, ``csrc/flash_attention_bwd.cu``, launch together;
-#: it has one variant, the CUDA-core walk)
+#: (its kernels, ``csrc/flash_attention_bwd.cu``, launch together)
 BWD_LAUNCHES = build.Counter()
+#: backward launches per variant: ``tile`` and ``cuda_core``
+BWD_VARIANT_LAUNCHES = {name: build.Counter()
+                        for name in ("tile", "cuda_core")}
+#: dK/dV blocks the backward tile's grid should have (two per SM of an
+#: H100) before :func:`bwd_splits` spreads a kv head's query heads
+BWD_TARGET_BLOCKS = 264
 
 
 def choose_variant(dtype: torch.dtype, d: int) -> str:
@@ -63,6 +78,25 @@ def choose_variant(dtype: torch.dtype, d: int) -> str:
     if dtype == torch.bfloat16 and d in TILE_HEAD_DIMS:
         return "tile"
     return "cuda_core"
+
+
+def choose_bwd_variant(dtype: torch.dtype, d: int) -> str:
+    """The backward's variant: ``"tile"`` (tensor cores) for bf16 at the
+    tile's head dims, else ``"cuda_core"`` (the f32 walk)."""
+    return choose_variant(dtype, d)
+
+
+def bwd_splits(b: int, t: int, kh: int, g: int, d: int) -> int:
+    """Blocks each kv head's G query heads are spread over in the backward
+    tile's dK/dV grid: 1 where (key tiles x KH x B) blocks reach
+    ``BWD_TARGET_BLOCKS``, else enough to (nearly) reach it, each split
+    taking ceil(G / splits) heads and none empty."""
+    keys = 64 if d <= 128 else 32  # a dK/dV block's (csrc BwdShape::kKVKeys)
+    blocks = -(-t // keys) * kh * b
+    if g == 1 or blocks >= BWD_TARGET_BLOCKS:
+        return 1
+    per = -(-g // min(g, -(-BWD_TARGET_BLOCKS // blocks)))
+    return -(-g // per)
 
 
 def _check(q, k, v, **more):
@@ -122,28 +156,55 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
     return out, lse
 
 
-def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True):
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
+                        variant: str | None = None,
+                        splits: int | None = None):
     """dQ, dK, dV of :func:`flash_attention` (the CUDA backward): q, out and
     dout (B,T,H,D), k/v (B,T,KH,D) CUDA tensors of one dtype, lse the
-    forward's f32 (B, H, T).  Returns (dq, dk, dv) in q's dtype."""
-    _check(q, k, v, out=out, dout=dout)
+    forward's f32 (B, H, T).  Returns (dq, dk, dv) in q's dtype.
+    ``variant`` (default :func:`choose_bwd_variant`) and ``splits`` (the
+    tile's, default :func:`bwd_splits`) force a route, to compare the
+    variants on the same inputs; a variant that does not take the inputs
+    raises."""
     b, t, h, d = q.shape
+    if variant is None:
+        variant = choose_bwd_variant(q.dtype, d)
+    if variant not in BWD_VARIANT_LAUNCHES:
+        raise ValueError(f"variant {variant!r} is not one of "
+                         f"{list(BWD_VARIANT_LAUNCHES)}")
+    if variant == "tile" and choose_bwd_variant(q.dtype, d) != "tile":
+        raise ValueError(f"the tile backward takes bf16 at head dims "
+                         f"{TILE_HEAD_DIMS}, got {q.dtype} at {d}")
+    _check(q, k, v, out=out, dout=dout)
     kh = k.shape[2]
     if (lse.dtype != torch.float32 or lse.shape != (b, h, t)
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError(f"lse must be a contiguous f32 {(b, h, t)} tensor on "
                          f"{q.device}, got {lse.dtype} {tuple(lse.shape)}")
+    if splits is None:
+        splits = bwd_splits(b, t, kh, h // kh, d)
+    if not 1 <= splits <= h // kh:
+        raise ValueError(f"splits must be in 1..{h // kh}, got {splits}")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if b == 0 or t == 0:
         return dq, dk, dv
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     lib = build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_attention_bwd(
-        _DTYPES[q.dtype], *(x.data_ptr() for x in (q, k, v, out, dout, lse,
-                                                    delta, dq, dk, dv)),
-        b, t, h, kh, d, int(causal), float(1.0 / math.sqrt(d)), stream)
-    build.check(err, "flash_attention_bwd")
+    ptrs = [x.data_ptr() for x in (q, k, v, out, dout, lse, delta, dq, dk,
+                                   dv)]
+    scale = float(1.0 / math.sqrt(d))
+    if variant == "tile":
+        part = (torch.empty((2 * splits, *k.shape), dtype=torch.float32,
+                            device=q.device) if splits > 1 else None)
+        err = lib.flash_attention_bwd_tile(
+            *ptrs, part.data_ptr() if part is not None else None, splits,
+            b, t, h, kh, d, int(causal), scale, stream)
+    else:
+        err = lib.flash_attention_bwd(_DTYPES[q.dtype], *ptrs, b, t, h, kh,
+                                      d, int(causal), scale, stream)
+    build.check(err, f"flash_attention_bwd ({variant})")
+    BWD_VARIANT_LAUNCHES[variant].bump()
     BWD_LAUNCHES.bump()
     return dq, dk, dv
 

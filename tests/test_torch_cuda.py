@@ -21,7 +21,9 @@ are also held against the plain models of their own algebra in ``ref``.
 The split-KV walk keeps scores, P and partials in f32, so its bf16 output
 is held to one bf16 rounding step (rtol 2**-7) and, in f32, to its model
 within 1e-5.  Head dim 256 (gemma-7b) is swept in every variant over every
-pool type, and flash at D 256 in both its variants.  The engine's dispatch
+pool type, and flash at D 256 in both its variants.  The flash backward is
+held in both its variants (the tensor-core tile and the bf16 and f32
+CUDA-core walk) to phase 8(a)'s limits, and its determinism bitwise.  The engine's dispatch
 is run with the CUDA sync debug mode at "error" while its lock is held.
 """
 
@@ -966,7 +968,7 @@ def test_zoo_kernel_route_raises_without_fallback(dev, monkeypatch):
 # ------------------------------------------------ flash backward (training)
 #: (B, T, H, KH, D, causal): chip_smoke phase 8(a)'s shapes and small
 #: ragged ones (T not a multiple of the 64- or 32-row tile, D off the tile
-#: dims, GQA and MQA)
+#: dims, GQA and MQA, and the tile's GQA split)
 BWD_SHAPES = [
     (1, 2048, 32, 32, 80, True),   # stablelm-3b training microbatch
     (1, 2048, 24, 2, 128, True),   # starcoder2-3b (G 12)
@@ -975,7 +977,21 @@ BWD_SHAPES = [
     (2, 100, 8, 2, 48, True),      # GQA 4, D off the tile dims, ragged
     (1, 77, 4, 1, 160, False),     # MQA, D 160 (32-row tiles), ragged
     (3, 3, 2, 2, 32, True),        # three tokens, one partial tile
+    (2, 100, 8, 2, 64, True),      # GQA 4 on the tile, ragged
+    (1, 77, 4, 1, 80, False),      # MQA on the tile, ragged
+    (1, 300, 24, 2, 128, True),    # G 12 over few key tiles: the split
+    (2, 130, 8, 2, 256, True),     # GQA at D 256: split warps
 ]
+#: (dtype, variant, shape): every shape in f32 on the walk, and in bf16 on
+#: the walk and, at the tile's head dims, on the tile
+BWD_CASES = [
+    pytest.param(dtype, variant, *shape,
+                 id=f"{variant}-{str(dtype)[6:]}-" + "-".join(map(str, shape)))
+    for shape in BWD_SHAPES
+    for dtype in (torch.bfloat16, torch.float32)
+    for variant in ("tile", "cuda_core")
+    if variant == "cuda_core"
+    or flash_attention.choose_bwd_variant(dtype, shape[4]) == "tile"]
 
 
 def _bwd_limit(got, want, dtype):
@@ -1001,26 +1017,75 @@ def _bwd_inputs(b, t, h, kh, d, dtype, dev, seed):
                       (b, t, h, d))]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,t,h,kh,d,causal", BWD_SHAPES)
-def test_flash_bwd_matches_plain(dev, dtype, b, t, h, kh, d, causal):
-    """``FlashAttentionFn``'s gradients (the CUDA backward) against
-    ``flash_attention_bwd_ref`` (autograd through the plain forward)."""
+@pytest.mark.parametrize("dtype,variant,b,t,h,kh,d,causal", BWD_CASES)
+def test_flash_bwd_matches_plain(dev, dtype, variant, b, t, h, kh, d,
+                                 causal):
+    """The CUDA backward against ``flash_attention_bwd_ref`` (autograd
+    through the plain forward): through ``FlashAttentionFn`` where the
+    variant is the one ``choose_bwd_variant`` picks, else forced through
+    ``flash_attention_bwd``'s ``variant`` (the bf16 walk at the tile's
+    head dims), which the routing leaves as it is."""
     from repro_torch.kernels.ref import flash_attention_bwd_ref
 
     q, k, v, do = _bwd_inputs(b, t, h, kh, d, dtype, dev, seed=t + h + d)
-    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
     n0, f0 = flash_attention.BWD_LAUNCHES.n, flash_attention.LAUNCHES.n
-    out = flash_attention.flash_attention(*leaves, causal=causal)
-    got = torch.autograd.grad(out, leaves, do)
+    v0 = flash_attention.BWD_VARIANT_LAUNCHES[variant].n
+    if variant == flash_attention.choose_bwd_variant(dtype, d):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = flash_attention.flash_attention(*leaves, causal=causal)
+        got = torch.autograd.grad(out, leaves, do)
+    else:
+        out, lse = flash_attention._forward(q, k, v, causal, with_lse=True)
+        got = flash_attention.flash_attention_bwd(q, k, v, out, do, lse,
+                                                  causal=causal,
+                                                  variant=variant)
     torch.cuda.synchronize()
     assert flash_attention.BWD_LAUNCHES.n == n0 + 1
+    assert flash_attention.BWD_VARIANT_LAUNCHES[variant].n == v0 + 1
     assert flash_attention.LAUNCHES.n == f0 + 1
     want = flash_attention_bwd_ref(q, k, v, do, causal=causal)
     for g, w, x in zip(got, want, (q, k, v)):
         assert g.dtype == dtype and g.shape == x.shape
         assert torch.isfinite(g).all()
         assert _bwd_limit(g, w, dtype)
+
+
+@pytest.mark.parametrize("variant,splits", [("tile", None), ("tile", 1),
+                                            ("cuda_core", None)])
+@pytest.mark.parametrize("b,t,h,kh,d,causal", [
+    (1, 2048, 32, 32, 80, True), (1, 300, 24, 2, 128, True),
+    (2, 130, 8, 2, 256, False), (4, 1500, 12, 12, 64, False)])
+def test_flash_bwd_is_deterministic(dev, variant, splits, b, t, h, kh, d,
+                                    causal):
+    """No atomics: two calls on the same bf16 inputs give the same bits,
+    on the tile with its GQA split and without it, and on the walk."""
+    q, k, v, do = _bwd_inputs(b, t, h, kh, d, torch.bfloat16, dev, seed=d)
+    out, lse = flash_attention._forward(q, k, v, causal, with_lse=True)
+    kw = dict(causal=causal, variant=variant)
+    if splits is not None:
+        kw["splits"] = splits
+    first = flash_attention.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    again = flash_attention.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    for a, c in zip(first, again):
+        assert torch.equal(a, c)
+
+
+def test_flash_bwd_routes_by_dtype(dev):
+    """Autograd's backward takes the tile for bf16 at D 80 and the walk
+    for f32, counted in ``BWD_VARIANT_LAUNCHES``."""
+    for dtype, want in ((torch.bfloat16, "tile"),
+                        (torch.float32, "cuda_core")):
+        q, k, v, do = _bwd_inputs(1, 96, 4, 4, 80, dtype, dev, seed=3)
+        before = {n: c.n for n, c in
+                  flash_attention.BWD_VARIANT_LAUNCHES.items()}
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = flash_attention.flash_attention(*leaves, causal=True)
+        torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        after = {n: c.n for n, c in
+                 flash_attention.BWD_VARIANT_LAUNCHES.items()}
+        assert {n: after[n] - before[n] for n in after} == {
+            n: int(n == want) for n in after}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
