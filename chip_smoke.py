@@ -146,13 +146,35 @@ Phases, each printing its own line; any failure exits non-zero:
    the smoke config on CUDA (a failure injected at step 12 of 20, one
    restart from the manifest), then ``python -m
    repro_torch.launch.train --steps 20`` as a subprocess on CUDA.
+9. The mesh layer (``repro_torch.sharding``, ``launch.mesh``), once 8c's
+   state is freed.  (a) ``kernels.can_delete_blocks`` (point
+   reservations) on CUDA tensors at ``tests/test_kernels.py:44``'s shapes
+   and its protected-interval cases: the era-scan kernel, one launch a
+   call, bitwise its plain version and the NumPy backend; timed at
+   R 1000 x 5120 slots with its bound (a row of the kernels line).  Then a
+   one-rank NCCL group and ``make_smoke_mesh``: (b) 8c's training (the
+   same seed, config and first batches) with the f32 masters as DTensors
+   laid out by ``sharding_tree(params_axes())`` and the accumulators
+   pinned by ``grad_shardings``, under ``axis_rules``, 3 steps: losses
+   within 1e-5 relative of 8c's (bitwise printed), the flash kernel
+   forward and backward per shard through ``local_map`` (512 forward
+   launches and 256 tile-backward launches a step, no plain route);
+   ms/step and peak memory beside 8c's; one more step with
+   ``bf16_weight_gather`` within 1e-2 of 8c's fourth loss, and one
+   profiled step (the device's busy and idle share); (c)
+   ``reshard_state`` onto the same mesh keeps every bit, ``merged_era``
+   and ``device_merge_all`` over NCCL, ``compressed_all_reduce`` of 8b's
+   cut's gradients bitwise ``dequantize(quantize(g + r))``, and the k = 1
+   rings of ``ag_matmul``/``rs_matmul`` equal the product; each timed.
+   The group is destroyed and the phase's seconds printed.
 
 The line before the last is the ``kernels`` JSON line (each row with
 ``launches_runtime``, its launches in 4c's 2-worker run; the rows of
 another arch name it in ``arch`` and take ``launches`` from its phase 6
 window; flash attention's rows take theirs from the model zoo's prefill of
 their arch, its f32 rows from phase 7's f32 group; the backward's rows,
-one per variant, and the forward's training row take theirs from 8c); the last line is
+one per variant, and the forward's training row take theirs from 8c; the
+point form's row from 9a); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -160,6 +182,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -224,6 +247,16 @@ def time_ms(fn, reps: int = 20, warmup: int = 3, graph: bool = False) -> float:
         end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def free_device_memory() -> None:
+    """Collect unreachable Python objects, then return the allocator's
+    cached blocks to the card: a finished phase's engine or weights can sit
+    in a reference cycle, which holds its tensors until the cyclic
+    collector runs, and a later phase's full-width weights need that
+    memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def gpu_name_and_limit() -> str:
@@ -813,7 +846,7 @@ def era_scan_phase(dev, cases) -> list:
         r, s, v = shape
         rows.append(dict(case=f"R {r} S {s}, {v:.0%} valid slots",
                          **check_era_scan(case, dev)))
-    torch.cuda.empty_cache()
+    free_device_memory()
     return rows
 
 
@@ -851,7 +884,7 @@ def serve_full_width(dev):
     zoo = guarded("model zoo stablelm-3b prefill", zoo_dense_prefill, cfg,
                   params, dev)
     del params
-    torch.cuda.empty_cache()
+    free_device_memory()
     return bf16["launches"], int8["launches"], schemes, runtime, zoo
 
 
@@ -932,7 +965,7 @@ def serve_schemes(cfg, params, dev) -> dict:
             out[scheme] = dict(era_scan_launches=scan_n,
                                largest_scan=list(largest))
             del engine
-            torch.cuda.empty_cache()
+            free_device_memory()
     finally:
         ops.can_delete_blocks_interval = scan
     return out
@@ -1012,7 +1045,7 @@ def serve_trace(cfg, params, dev, kv_dtype):
     window = profile_window(engine, tid, cfg)
     generated = [r.generated for r in reqs]
     del engine
-    torch.cuda.empty_cache()
+    free_device_memory()
     return dict(launches=dict({k: launches[k] for k in sorted(path)},
                               by_kind=by_kind, **variants),
                 tokens=generated, tok_s=gen_tokens / dt, window=window)
@@ -1326,7 +1359,7 @@ def serve_sharded(cfg, params, dev, prompts, new, *, workers,
     if profile:
         out["busy_sum"], out["busy_union"] = _device_busy(prof)
     del engine, runtime, log
-    torch.cuda.empty_cache()
+    free_device_memory()
     return out
 
 
@@ -1593,7 +1626,7 @@ def shard_tokens(dev) -> dict:
                   f"requests submitted in reverse order "
                   f"{m['1 shard reversed']}", flush=True)
         del params
-        torch.cuda.empty_cache()
+        free_device_memory()
     return out
 
 
@@ -1718,7 +1751,7 @@ def frontend_full_width(cfg, params, dev, window) -> None:
           f"free_blocks={engine.pool.free_blocks}/2048 worker_steps="
           f"{st['worker_steps']} launches={n} by plan kind={log.by_kind()}")
     del engine, frontend
-    torch.cuda.empty_cache()
+    free_device_memory()
 
 
 def entry_points() -> None:
@@ -1811,7 +1844,7 @@ def step_matches_cpu(dev, arch="stablelm-3b"):
           err <= tol and finite and shape_ok,
           f"max_abs_err={err:.3e} (tol {tol}), finite={finite}")
     del params, out
-    torch.cuda.empty_cache()
+    free_device_memory()
 
 
 def _to(tree, d):
@@ -1918,7 +1951,7 @@ def serve_arch_window(cfg, params, dev, kv_dtype=None) -> dict:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on "
           f"{gpu_name_and_limit()}", flush=True)
     del engine, log
-    torch.cuda.empty_cache()
+    free_device_memory()
     return dict(launches, by_kind=by_kind, **variants)
 
 
@@ -1957,7 +1990,7 @@ def serve_archs(dev) -> dict:
         if zoo is not None:
             out[(arch, "zoo")] = zoo
         del params
-        torch.cuda.empty_cache()
+        free_device_memory()
         guarded(f"6 {arch} step", step_matches_cpu, dev, arch)
         print(f"  phase 6 {arch}: {time.perf_counter() - t0:.1f} s",
               flush=True)
@@ -2161,7 +2194,7 @@ def zoo_f32(arch, dev) -> int:
               f"{MLA_BLOCK}, permuted tables) vs decode_step", perr <= tol,
               f"max_abs_err={perr:.3e} (tol {tol})")
     del params, cache, full
-    torch.cuda.empty_cache()
+    free_device_memory()
     return variants["cuda_core"]
 
 
@@ -2364,7 +2397,7 @@ def zoo_bf16(arch, dev) -> dict:
         out["window"] = guarded(f"7 {arch} window", zoo_window, cfg, params,
                                 dev)
     del params
-    torch.cuda.empty_cache()
+    free_device_memory()
     return out
 
 
@@ -2595,7 +2628,7 @@ def flash_bwd_phase(gen, dev) -> dict:
     rows["forward"] = check_flash(1, TRAIN_SEQ, 32, 32, 80, torch.bfloat16,
                                   True, gen, dev, 2e-2,
                                   "stablelm-3b train microbatch")
-    torch.cuda.empty_cache()
+    free_device_memory()
     return rows
 
 
@@ -2672,7 +2705,7 @@ def train_step_matches_cpu(dev) -> None:
           and bwd == 2 * cfg.n_layers == by["cuda_core"] and by["tile"] == 0,
           detail + f", backward launches {bwd} (by variant {by})")
     del out, base
-    torch.cuda.empty_cache()
+    free_device_memory()
 
 
 def train_slice(dev) -> dict:
@@ -2745,8 +2778,9 @@ def train_slice(dev) -> dict:
           f"{peak:.2f} GiB, 6 N D share of the bf16 peak {mfu:.4f} on "
           f"{gpu_name_and_limit()}", flush=True)
     del state, trainer
-    torch.cuda.empty_cache()
-    return dict(counts=counts, ms_per_step=steady, peak_gib=peak)
+    free_device_memory()
+    return dict(counts=counts, ms_per_step=steady, peak_gib=peak,
+                losses=[m["loss"] for m in metrics])
 
 
 def profile_train_step(trainer, state, batch, step_ms) -> None:
@@ -2870,6 +2904,306 @@ def train_phase(dev) -> dict:
     return rows
 
 
+# ------------------------------------------------------------ phase 9: mesh
+def point_scan(dev) -> dict:
+    """9(a): ``kernels.can_delete_blocks`` (the point form, the reference's
+    ``era_scan`` :124) on CUDA tensors at ``tests/test_kernels.py:44``'s
+    shapes (R 1, 7, 256, 300, 1000 x T, H 4 x 2, 64 x 10, 512 x 10, half
+    the slots empty) and its protected-interval cases (:97): the kernel,
+    one launch a call, bitwise its plain version (``ref.era_scan_ref``) and
+    the NumPy backend.  The row is timed at R 1000 x 5120 slots, with the
+    bound of phase 2's rows (``ERA_PAIR_OPS`` a valid pair; bytes: each
+    input read once, the mask written once)."""
+    from repro_torch.core.era_table import _can_delete_numpy
+    from repro_torch.kernels import can_delete_blocks
+    from repro_torch.kernels import era_scan as es
+    from repro_torch.kernels.ref import INF_ERA32, era_scan_ref
+
+    rng = np.random.default_rng(SEED + 9)
+    cases = []
+    for r in (1, 7, 256, 300, 1000):
+        for t, h in ((4, 2), (64, 10), (512, 10)):
+            alloc = rng.integers(0, 100, r).astype(np.int32)
+            retire = (alloc + rng.integers(0, 50, r)).astype(np.int32)
+            res = rng.integers(0, 160, (t, h)).astype(np.int32)
+            res[rng.random((t, h)) < 0.5] = INF_ERA32
+            cases.append((alloc, retire, res))
+    five, ten = np.full(3, 5, np.int32), np.full(3, 10, np.int32)
+    guard = [(five, ten, np.array(res, np.int32))
+             for res in ([[7, INF_ERA32]], [[5]], [[10]], [[4]], [[11]])]
+    guard_want = [False, False, False, True, True]  # every block's fate
+    bad, steps = [], []
+    es.LAUNCHES.n = 0
+    for i, (alloc, retire, res) in enumerate(cases + guard):
+        t = [torch.from_numpy(x).to(dev) for x in (alloc, retire, res)]
+        n0 = es.LAUNCHES.n
+        got = can_delete_blocks(*t, use_kernel=True).cpu().numpy()
+        steps.append(es.LAUNCHES.n - n0)
+        want = _can_delete_numpy(alloc, retire, res.ravel(), res.ravel())
+        plain = era_scan_ref(*t).cpu().numpy()
+        if i >= len(cases):
+            want_all = guard_want[i - len(cases)]
+            ok = bool(want.all() if want_all else not want.any())
+        else:
+            ok = True
+        if not (ok and np.array_equal(got, want)
+                and np.array_equal(plain, want)):
+            bad.append(i)
+    launches = es.LAUNCHES.n
+    n = len(cases) + len(guard)
+    phase("9a can_delete_blocks (point reservations) on CUDA vs plain and "
+          "numpy", not bad and steps == [1] * n and launches == n,
+          f"{n} calls ({len(cases)} shapes of test_kernels.py:44, "
+          f"{len(guard)} protected-interval cases), bit-identical "
+          f"{not bad} (failed {bad}), launches {launches}")
+    alloc, retire, res = cases[-1]  # R 1000, T 512 x H 10
+    t = [torch.from_numpy(x).to(dev) for x in (alloc, retire, res)]
+    kern = lambda: can_delete_blocks(*t, use_kernel=True)  # noqa: E731
+    ms = time_ms(kern, reps=50)
+    device_ms = time_ms(kern, reps=50, graph=True)
+    plain_ms = time_ms(lambda: era_scan_ref(*t), reps=10)
+    es.LAUNCHES.n = launches  # timing launches do not count
+    r, s = len(alloc), res.size
+    valid = int(np.count_nonzero(res != INF_ERA32))
+    t_bytes = (4 * (2 * r + s) + r) / HBM_BPS * 1e3
+    t_ops = ERA_PAIR_OPS * r * valid / PEAK_OPS[torch.int32] * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                             "operations")
+    print(f"  9a can_delete_blocks R={r} T x H=512 x 10 ({valid} valid): "
+          f"kernel {ms:.4f} ms (graph replay {device_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, bound {bound:.3e} ms ({by}) on "
+          f"{gpu_name_and_limit()}", flush=True)
+    return dict(case="point reservations (`can_delete_blocks`), R 1000, "
+                "T 512 x H 10", launches=launches, max_abs_err=0.0 if not bad
+                else 1.0, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None,
+                library_device_ms=None, valid_slots=valid)
+
+
+def mesh_train(dev, mesh, ref: dict):
+    """9(b): 8c's training on the one-rank NCCL mesh: the same seeded f32
+    masters as DTensors laid out by ``sharding_tree(params_axes())``, the
+    gradient accumulators pinned to the same placements
+    (``grad_shardings``), under ``axis_rules``; 3 steps of 8c's batches
+    (``SyntheticLMData`` from 8c's seed) against 8c's first 3 losses
+    (1e-5 relative; bitwise expected: a 1x1 mesh runs the same local
+    ops), the flash routes and launches of 8c a step; then one step with
+    ``bf16_weight_gather`` on against 8c's fourth loss (1e-2), and one
+    profiled step (device busy and idle share).  Returns the state (for
+    9c's reshard)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention, build_model
+    from repro_torch.models.perf_flags import set_flags
+    from repro_torch.sharding.axes import axis_rules, sharding_tree
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.optim import adamw_init, tree_map
+
+    cfg = get_config("stablelm-3b")
+    model = build_model(cfg)
+    axes = model.params_axes()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev, master=True)
+    placements = sharding_tree(params, axes, mesh)
+    params = tree_map(lambda t, pl: distribute_tensor(t, mesh, pl), params,
+                      placements)
+    state = {"params": params, "opt": adamw_init(params)}
+    step = make_train_step(model, AdamWConfig(lr=1e-4, warmup_steps=2,
+                                              total_steps=100),
+                           grad_shardings=placements)
+    data = SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    counters = {"kernel": attention.FLASH_ROUTES["kernel"],
+                "plain": attention.FLASH_ROUTES["plain"],
+                "forward": fa.LAUNCHES, "backward": fa.BWD_LAUNCHES,
+                "backward tile": fa.BWD_VARIANT_LAUNCHES["tile"],
+                "backward cuda_core": fa.BWD_VARIANT_LAUNCHES["cuda_core"]}
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for ctr in counters.values():
+        ctr.n = 0
+    with axis_rules(mesh):
+        for i in range(3):
+            t0 = time.perf_counter()
+            state, m = step(state, data.batch_at(i))
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = {k: ctr.n for k, ctr in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prev = set_flags(bf16_weight_gather=True)
+        try:
+            state, m = step(state, data.batch_at(3))
+            gather_loss = float(m["loss"])
+        finally:
+            set_flags(**prev)
+        # where the mesh step's time goes: one more step under the profiler
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state, m = step(state, data.batch_at(4))
+            float(m["loss"])
+            torch.cuda.synchronize()
+        _, busy = _device_busy(prof)
+    per_step = cfg.n_layers * cfg.num_microbatches
+    want = {"kernel": 6 * per_step, "plain": 0, "forward": 6 * per_step,
+            "backward": 3 * per_step, "backward tile": 3 * per_step,
+            "backward cuda_core": 0}
+    ref_losses = ref.get("losses", [])
+    diff = max((abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+               default=float("inf"))
+    bitwise = losses == ref_losses[:3]
+    phase(f"9b full-width stablelm-3b bf16 train on the 1x1 NCCL mesh "
+          f"(DTensor masters, grad_shardings), 3 steps of 8c's batches",
+          len(ref_losses) >= 4 and diff <= 1e-5 and counts == want,
+          f"losses {losses} vs 8c {ref_losses[:3]}: largest relative "
+          f"difference {diff:.3e}, bitwise equal {bitwise}; counts {counts} "
+          f"(want {want})")
+    rel = abs(gather_loss - ref_losses[3]) / abs(ref_losses[3]) \
+        if len(ref_losses) >= 4 else float("inf")
+    phase("9b one step with bf16_weight_gather on",
+          math.isfinite(gather_loss) and rel <= 1e-2,
+          f"loss {gather_loss} vs 8c's step 4 {ref_losses[3:4]} (flag off): "
+          f"relative {rel:.3e} (limit 1e-2)")
+    steady = float(np.mean(ms[1:]))
+    wall = steady / 1e3
+    print(f"  9b: ms/step {[round(x, 1) for x in ms]} (steady mean "
+          f"{steady:.1f}; 8c {ref.get('ms_per_step', float('nan')):.1f}), "
+          f"peak {peak:.2f} GiB (8c {ref.get('peak_gib', float('nan')):.2f}); "
+          f"one profiled step: device busy (union of intervals) {busy:.3f} s "
+          f"= {busy / wall:.1%} of the unprofiled step, idle "
+          f"{1 - busy / wall:.1%} on {gpu_name_and_limit()}", flush=True)
+    return state, axes
+
+
+def _host_timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def mesh_collectives(dev, mesh, state, axes) -> None:
+    """9(c): the collectives on the one-rank NCCL group, each timed (host
+    clock around a synchronised call): ``reshard_state`` of 9b's state from
+    the 1x1 mesh back onto it keeps every bit; ``merged_era`` of a CUDA
+    int64 and ``device_merge_all`` over a 2-shard ``ShardedEraDomain``
+    (every clock to the maximum, none back); ``compressed_all_reduce`` of
+    the gradient tree of 8b's cut (stablelm-3b at full width, 2 layers,
+    f32) bitwise ``dequantize(quantize(g + r))`` without the group;
+    ``ag_matmul``/``rs_matmul`` at k = 1 bitwise the product."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_scheme
+    from repro_torch.core.distributed_eras import ShardedEraDomain, merged_era
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.sharding.gradient_compression import (
+        apply_error_feedback, compressed_all_reduce, dequantize)
+    from repro_torch.sharding.overlap import ag_matmul, rs_matmul
+    from repro_torch.train.fault_tolerance import reshard_state
+    from repro_torch.train.optim import tree_leaves, tree_map
+    from repro_torch.train.trainer import bind_grads
+
+    moved, ms = _host_timed(lambda: reshard_state(state["params"], axes,
+                                                  mesh))
+    pairs = list(zip(tree_leaves(moved), tree_leaves(state["params"])))
+    same = all(isinstance(a, DTensor) and a.device_mesh == mesh
+               and a.placements == b.placements
+               and torch.equal(a.to_local(), b.to_local()) for a, b in pairs)
+    phase("9c reshard_state 1x1 -> 1x1 keeps every bit", same,
+          f"{len(pairs)} leaves in {ms:.2f} ms")
+    del moved, pairs
+
+    era = torch.tensor([123], dtype=torch.int64, device=dev)
+    got, ms = _host_timed(lambda: merged_era(era))
+    smrs = [make_scheme("WFE", max_threads=2, era_freq=1, cleanup_freq=1)
+            for _ in range(2)]
+    smrs[1].global_era.fa_add(5)
+    dom = ShardedEraDomain(smrs)
+    before = dom.locals
+    m, ms_dom = _host_timed(dom.device_merge_all)
+    after = dom.locals
+    phase("9c merged_era and device_merge_all over NCCL",
+          got.is_cuda and got.tolist() == [123] and m == max(before)
+          and after == [max(before)] * 2
+          and all(a >= b for a, b in zip(after, before)),
+          f"merged_era {got.tolist()} in {ms:.3f} ms; clocks {before} -> "
+          f"{after} in {ms_dom:.3f} ms")
+
+    cfg = get_config("stablelm-3b").scaled(n_layers=2, dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev, master=True)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLMData(
+        cfg.vocab_size, 64, 2, seed=SEED).batch_at(0).items()}
+    model.loss(bind_grads(params), batch).backward()
+    grads = tree_map(lambda p: p.grad, params)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    resid = tree_map(lambda g: 1e-3 * torch.randn(
+        g.shape, generator=gen, device=dev), grads)
+    (mean, new_r), ms = _host_timed(lambda: compressed_all_reduce(
+        grads, None, resid))
+    ok = True
+    for g, r, a, nr in zip(*(tree_leaves(x) for x in (grads, resid, mean,
+                                                       new_r))):
+        q, scale, want_r = apply_error_feedback(g, r)
+        ok = ok and torch.equal(a, dequantize(q, scale)) \
+            and torch.equal(nr, want_r)
+    n = sum(g.numel() for g in tree_leaves(grads))
+    phase("9c compressed_all_reduce over NCCL of 8b's cut's gradients", ok,
+          f"{n} elements in {len(tree_leaves(grads))} leaves, bitwise "
+          f"dequantize(quantize(g + r)) and its residual {ok}, {ms:.2f} ms")
+    del params, grads, resid, mean, new_r
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    x = torch.randn((2048, cfg.d_model), generator=gen, device=dev)
+    w = torch.randn((cfg.d_model, cfg.d_ff), generator=gen, device=dev)
+    want = torch.matmul(x, w)
+    ag, ms_ag = _host_timed(lambda: ag_matmul(x, w))
+    rs, ms_rs = _host_timed(lambda: rs_matmul(x, w))
+    _, ms_mm = _host_timed(lambda: torch.matmul(x, w))
+    phase("9c ag_matmul / rs_matmul at k = 1 equal the product",
+          torch.equal(ag, want) and torch.equal(rs, want),
+          f"(2048 x {cfg.d_model}) @ ({cfg.d_model} x {cfg.d_ff}) f32: "
+          f"ag {ms_ag:.3f} ms, rs {ms_rs:.3f} ms, torch.matmul {ms_mm:.3f} "
+          f"ms")
+
+
+def mesh_phase(dev, ref: dict) -> dict:
+    """Phase 9: the point-form scan (9a), then a one-rank NCCL group and the
+    1x1 smoke mesh for training on DTensor masters (9b) and the
+    collectives (9c); the group is destroyed at the end."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    t9 = time.perf_counter()
+    row = guarded("9a point-form era scan", point_scan, dev)
+    mesh = make_smoke_mesh(dev)
+    try:
+        phase("9 one-rank mesh", dist.get_backend() == "nccl"
+              and mesh.mesh_dim_names == ("data", "model"),
+              f"backend {dist.get_backend()}, mesh {tuple(mesh.shape)} "
+              f"{mesh.mesh_dim_names}")
+        got = guarded("9b mesh training", mesh_train, dev, mesh, ref)
+        if got is not None:
+            state, axes = got
+            guarded("9c collectives", mesh_collectives, dev, mesh, state,
+                    axes)
+            del state, got
+    finally:
+        dist.destroy_process_group()
+    free_device_memory()
+    print(f"  phase 9: {time.perf_counter() - t9:.1f} s on "
+          f"{gpu_name_and_limit()}", flush=True)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2899,7 +3233,7 @@ def main() -> int:
         torch.bfloat16, 9, 256, 128, dev, engine_mixed=True)
     attn[("int8", "engine")] = check_attention_int8(9, 256, 128, dev,
                                                     engine_mixed=True)
-    torch.cuda.empty_cache()
+    free_device_memory()
     # the other archs' shapes (phase 6 serves them): gemma-7b's head dim
     # 256 (KH 16, G 1) over bf16 and int8 pages, and an f32 query (the
     # 64-key split-KV walk and the CUDA-core walk); the grouped heads at
@@ -2914,7 +3248,7 @@ def main() -> int:
         for arch in GQA_ARCHS:
             attn[(arch, torch.bfloat16, c)] = check_attention(
                 torch.bfloat16, b, c, 128, dev, arch=arch)
-        torch.cuda.empty_cache()
+        free_device_memory()
     # dense flash attention: prefill of stablelm-3b (MHA, D 80) and of
     # starcoder2-3b (GQA 24 / 2, D 128; src/repro/configs/starcoder2_3b.py),
     # and an f32 non-causal GQA case
@@ -2925,7 +3259,7 @@ def main() -> int:
     # gemma-7b prefill (MHA 16 / 16, D 256; src/repro/configs/gemma_7b.py)
     flash_gemma = check_flash(1, 4096, 16, 16, 256, torch.bfloat16, True, gen,
                               dev, 2e-2, "gemma-7b prefill")
-    torch.cuda.empty_cache()
+    free_device_memory()
     # phase 7's shapes: mixtral-8x7b (GQA 32 / 8, D 128) at phase 7's prompt
     # and at its window, recurrentgemma-2b's local attention (MQA 10 / 1,
     # D 256) likewise, and whisper-small's encoder (12 heads of 64,
@@ -2959,7 +3293,7 @@ def main() -> int:
             2, 1500, 12, 12, 64, torch.float32, False, gen, dev, 1e-4,
             "whisper-small f32 group encoder"),
     }
-    torch.cuda.empty_cache()
+    free_device_memory()
 
     launches, launches_q8, schemes, runtime, zoo_stablelm = \
         serve_full_width(dev)
@@ -2973,6 +3307,7 @@ def main() -> int:
     zoo = zoo_phase(dev)
     print(f"  phase 7: {time.perf_counter() - t7:.1f} s", flush=True)
     train = train_phase(dev)
+    point_row = mesh_phase(dev, train.get("train", {}))
 
     # one row per (kernel, main-path shape) under the kernel's own name;
     # the first row of each name is at the shape earlier versions of this
@@ -3073,6 +3408,13 @@ def main() -> int:
              launches_by_scheme={k: v["era_scan_launches"]
                                  for k, v in schemes.items()}, **row)
         for row in era_rows]
+    # phase 9a's row: the point form at test_kernels.py's largest shape,
+    # ``launches`` from 9a's calls
+    if point_row is not None:
+        kernels.append(dict(name="era_scan_interval", route="cuda",
+                            source="src/repro_torch/kernels/csrc/era_scan.cu",
+                            replaces="src/repro/kernels/era_scan.py:96",
+                            **point_row))
     kernels += [
         dict(name="flash_attention", case="stablelm-3b prefill", **flash_src,
              launches=zoo_launches("stablelm-3b"), **flash),

@@ -15,6 +15,8 @@ import torch
 
 from repro_torch.models.common import ArchConfig
 
+from .shapes import SHAPES, ShapeSpec, cell_is_runnable
+
 _MODULES = {
     "recurrentgemma-2b": "recurrentgemma_2b",
     "stablelm-3b": "stablelm_3b",
@@ -49,6 +51,9 @@ def get_smoke_config(name: str) -> ArchConfig:
 
 __all__ = [
     "ALL_ARCHS",
+    "SHAPES",
+    "ShapeSpec",
+    "cell_is_runnable",
     "get_config",
     "get_smoke_config",
 ]

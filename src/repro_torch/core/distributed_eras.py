@@ -20,18 +20,40 @@ as in the single-instance proof, and the merge adds no increments — it only
 equalizes, so the fleet-wide clock spread after a merge is zero and between
 merges is bounded by one merge period's worth of local activity.
 
-The reference's device half — ``merged_era`` (an all-reduce max inside
-``shard_map``), ``DistributedEraClock.device_merge`` and
-``ShardedEraDomain.device_merge_all`` — is not ported here: across cards
-it becomes a ``torch.distributed`` all-reduce MAX, which belongs with the
-port of ``sharding/`` and ``launch/``.
+The device half: :func:`merged_era` is an all-reduce MAX of the era over
+a ``torch.distributed`` process group (the reference's ``pmax`` inside
+``shard_map``); :meth:`DistributedEraClock.device_merge` and
+:meth:`ShardedEraDomain.device_merge_all` fold its result into the local
+clocks.  They import torch inside, so the host layer imports none.
 """
 
 from __future__ import annotations
 
 from typing import List
 
-__all__ = ["DistributedEraClock", "ShardedEraDomain"]
+__all__ = ["merged_era", "DistributedEraClock", "ShardedEraDomain"]
+
+
+def merged_era(local_era, group=None):
+    """All-reduce MAX of per-rank era counters over ``group`` (None: the
+    default group).  ``local_era`` is an int or a one-element tensor; the
+    reduction runs on a one-element int64 tensor on the group's device
+    (CUDA for NCCL, the CPU for gloo).  Returns the maximum as an int, or
+    as a tensor of ``local_era``'s device when given one."""
+    import torch
+    import torch.distributed as dist
+
+    if dist.get_backend(group) == "nccl":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    else:
+        dev = torch.device("cpu")
+    t = torch.as_tensor(local_era).reshape(1).to(dev, torch.int64)
+    if torch.is_tensor(local_era):
+        t = t.clone()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    if torch.is_tensor(local_era):
+        return t.to(local_era.device)
+    return int(t.item())
 
 
 class DistributedEraClock:
@@ -71,6 +93,13 @@ class DistributedEraClock:
                 self.merged_in += 1
                 return remote_max
 
+    def device_merge(self, group=None) -> int:
+        """Run the all-reduce MAX over ``group`` and merge the result.
+
+        In production this rides on an existing step collective; here it is
+        a standalone all-reduce of one int64."""
+        return self.merge(merged_era(self.local, group))
+
 
 class ShardedEraDomain:
     """Monotone max-merge across N shard clocks inside one process.
@@ -103,6 +132,14 @@ class ShardedEraDomain:
     def merge_all(self) -> int:
         """One merge round: every shard clock advances to the fleet max."""
         m = max(self.locals, default=0)
+        for c in self.clocks:
+            c.merge(m)
+        self.merges += 1
+        return m
+
+    def device_merge_all(self, group=None) -> int:
+        """Fold the cross-rank device maximum into every shard clock."""
+        m = max((c.device_merge(group) for c in self.clocks), default=0)
         for c in self.clocks:
             c.merge(m)
         self.merges += 1

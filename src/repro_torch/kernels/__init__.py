@@ -7,8 +7,8 @@ The dense attention selector is ``ops.flash_attention``; it is not
 re-exported here, where its name would hide the ``flash_attention`` module.
 """
 
-from .ops import (can_delete_blocks_interval, paged_chunk_attention,
-                  paged_decode_attention)
+from .ops import (can_delete_blocks, can_delete_blocks_interval,
+                  paged_chunk_attention, paged_decode_attention)
 
-__all__ = ["can_delete_blocks_interval", "paged_chunk_attention",
-           "paged_decode_attention"]
+__all__ = ["can_delete_blocks", "can_delete_blocks_interval",
+           "paged_chunk_attention", "paged_decode_attention"]

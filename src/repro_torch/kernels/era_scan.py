@@ -6,10 +6,11 @@ Replaces the Pallas TPU kernel ``repro/kernels/era_scan.py``
 this module checks the operands and launches it on the current CUDA
 stream.  Its plain PyTorch version is ``era_scan_interval_ref``.
 
-``era_scan_interval`` takes CUDA tensors.  ``round_trip`` is the route the
-era table's ``cuda`` backend takes from its NumPy mirrors: one packed
-pinned host-to-device copy, the launch, one device-to-host copy of the
-mask and one stream sync (``ops.can_delete_blocks_interval``).
+``era_scan_interval`` takes CUDA tensors; ``era_scan`` is its point form
+(the reference's :124), a launch of the same kernel.  ``round_trip`` is
+the route the era table's ``cuda`` backend takes from its NumPy mirrors:
+one packed pinned host-to-device copy, the launch, one device-to-host
+copy of the mask and one stream sync (``ops.can_delete_blocks_interval``).
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ import torch
 from . import build
 from .ref import INF_ERA32, era_scan_interval_ref
 
-__all__ = ["era_scan_interval", "era_scan_interval_ref", "round_trip",
-           "INF_ERA32", "LAUNCHES"]
+__all__ = ["era_scan", "era_scan_interval", "era_scan_interval_ref",
+           "round_trip", "INF_ERA32", "LAUNCHES"]
 
 #: launches of the kernel (``LAUNCHES.n``), bumped once per launch
 LAUNCHES = build.Counter()
@@ -57,6 +58,14 @@ def era_scan_interval(alloc_eras: torch.Tensor, retire_eras: torch.Tensor,
     build.check(err, "era_scan_interval")
     LAUNCHES.bump()
     return out
+
+
+def era_scan(alloc_eras: torch.Tensor, retire_eras: torch.Tensor,
+             reservations: torch.Tensor) -> torch.Tensor:
+    """Point-reservation form: (R,), (R,), (T, H) int32 CUDA tensors ->
+    (R,) bool mask.  A point era ``e`` is the interval ``[e, e]``."""
+    res = reservations.reshape(-1).contiguous()
+    return era_scan_interval(alloc_eras, retire_eras, res, res)
 
 
 class _Staging:

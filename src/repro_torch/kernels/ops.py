@@ -15,7 +15,8 @@ import torch
 
 from . import era_scan, flash_attention as flash, paged_attention, ref
 
-__all__ = ["can_delete_blocks_interval", "flash_attention",
+__all__ = ["can_delete_blocks", "can_delete_blocks_interval",
+           "flash_attention",
            "paged_decode_attention", "paged_chunk_attention"]
 
 
@@ -25,6 +26,22 @@ def _on_cpu(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def can_delete_blocks(alloc_eras, retire_eras, reservations, *,
+                      use_kernel: bool = False) -> torch.Tensor:
+    """Vectorized WFE can_delete over R retired blocks: (R,), (R,) and
+    (T, H) point reservations -> (R,) bool, on the device of the tensors
+    given (NumPy arrays become CPU tensors).  ``use_kernel`` launches the
+    CUDA kernel on CUDA tensors; without it, or on CPU tensors, the plain
+    version runs."""
+    alloc_eras, retire_eras, reservations = (
+        torch.as_tensor(t).to(torch.int32)
+        for t in (alloc_eras, retire_eras, reservations))
+    if use_kernel and not _on_cpu(alloc_eras):
+        return era_scan.era_scan(alloc_eras.contiguous(),
+                                 retire_eras.contiguous(), reservations)
+    return ref.era_scan_ref(alloc_eras, retire_eras, reservations)
 
 
 def can_delete_blocks_interval(alloc_eras, retire_eras, res_lo, res_hi, *,

@@ -33,6 +33,13 @@ def era_scan_interval_ref(alloc_eras: torch.Tensor, retire_eras: torch.Tensor,
     return ~conflict.any(dim=1)
 
 
+def era_scan_ref(alloc_eras: torch.Tensor, retire_eras: torch.Tensor,
+                 reservations: torch.Tensor) -> torch.Tensor:
+    """WFE cleanup() point-era scan (paper Fig. 4): lo == hi == era."""
+    res = reservations.reshape(-1)  # (T*H,)
+    return era_scan_interval_ref(alloc_eras, retire_eras, res, res)
+
+
 # ------------------------------------------------------ paged chunk attention
 def paged_attention_chunk_ref(
     q: torch.Tensor,            # (B, C, KH, G, D) a query chunk per request

@@ -1,2 +1,3 @@
-"""Launch layer of the port: the serving CLI (``launch/serve.py``) and the
-training driver (``launch/train.py``)."""
+"""Launch layer of the port: the serving CLI (``launch/serve.py``), the
+training CLI (``launch/train.py``) and the production and smoke meshes
+(``launch/mesh.py``)."""

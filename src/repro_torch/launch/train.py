@@ -4,8 +4,8 @@
 ``--smoke`` (the default, and the only mode the flag allows): the REDUCED
 config of the selected arch runs real steps with checkpointing and
 restart.  The reference's full-config mesh dry run
-(``launch/dryrun.py``) waits for the port's sharding and launch tooling
-(ROADMAP Queue 1 item 5).  Weights are random, from generator seed 0 on
+(``launch/dryrun.py``) waits for the port's launch tooling (ROADMAP
+Queue 1 item 1).  Weights are random, from generator seed 0 on
 the device.
 
 Usage:

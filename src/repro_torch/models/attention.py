@@ -19,6 +19,16 @@ tensor's values (that would sync the host):
   other case: MLA (D 192 for q and k, Dv 128), cross-attention (Tq != Tk),
   windowed layers past their window, decode, and everything on the CPU.
 
+DTensor operands (under ``sharding.axes.axis_rules`` with a mesh) run
+shard by shard (:func:`_flash_per_shard`): DTensor's ``local_map`` hands
+each rank its local q, k and v, and :func:`flash_attention` picks the
+route above from the local tensors (the kernel on the card, forward and
+backward).  Attention is local to a batch row and to a kv head with its
+query heads, so each mesh dim keeps q's batch sharding, or a head
+sharding where k's kv heads shard on it too; q's heads otherwise take
+k's layout (replicated), so a rank's query heads meet exactly the kv
+heads they read.
+
 ``FLASH_ROUTES`` counts the calls of each route; a group that remat
 recomputes in the backward calls again and counts again.  Where autograd
 needs the gradient (training), the kernel route runs through
@@ -35,6 +45,7 @@ operands are read as f32, which is exact for bf16 values.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -44,6 +55,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as flash_kernel
+from repro_torch.sharding.axes import is_dtensor, logical_constraint, rewrap
 
 from .layers import apply_rope, matmul
 
@@ -54,6 +66,14 @@ FLASH_ROUTES = {"kernel": build.Counter(), "plain": build.Counter()}
 
 
 # ===================================================================== GQA
+GQA_AXES = {
+    "wq": ("embed", "qkv"),
+    "wk": ("embed", "qkv"),
+    "wv": ("embed", "qkv"),
+    "wo": ("qkv", "embed"),
+}
+
+
 def _qkv(cfg, p, x, positions, rope=True):
     """x (B, T, d) -> q (B, T, H, hd), k and v (B, T, KH, hd)."""
     b, t, _ = x.shape
@@ -64,6 +84,9 @@ def _qkv(cfg, p, x, positions, rope=True):
     if rope and cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = logical_constraint(q, ("batch", "seq", "heads", "head_dim"))
+    k = logical_constraint(k, ("batch", "seq", "kv_heads", "head_dim"))
+    v = logical_constraint(v, ("batch", "seq", "kv_heads", "head_dim"))
     return q, k, v
 
 
@@ -101,6 +124,11 @@ def flash_attention(
     route :func:`flash_route` picks.  ``arange_positions``: the caller built
     ``q_positions`` and ``kv_positions`` both as ``arange(T)`` over the
     batch.  Returns (B, Tq, H, Dv) in q's dtype."""
+    if is_dtensor(q):
+        return _flash_per_shard(q, k, v, q_positions, kv_positions,
+                                causal=causal, window=window,
+                                q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                scale=scale, arange_positions=arange_positions)
     same = q.dtype if q.dtype == k.dtype == v.dtype else None
     route = flash_route(q.device.type, same, q.shape, k.shape, v.shape,
                         arange_positions=arange_positions, window=window,
@@ -112,6 +140,46 @@ def flash_attention(
     return _flash_plain(q, k, v, q_positions, kv_positions, causal=causal,
                         window=window, q_chunk=q_chunk, kv_chunk=kv_chunk,
                         scale=scale)
+
+
+def _flash_per_shard(q, k, v, q_positions, kv_positions, **kw):
+    """:func:`flash_attention` of a DTensor q through ``local_map``: one
+    local call per rank.  On each mesh dim q, k and v take ``Shard(0)``
+    where q has it (batch rows are independent), ``Shard(2)`` where q and
+    k both shard their heads on it and its size divides H and KH (each
+    rank then holds whole GQA groups: local query head h reads local kv
+    head h // G), else ``Replicate()``; the positions follow the batch
+    sharding.  The result (B, Tq, H, Dv) has those placements.  Plain
+    tensors among k, v and the positions count as replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+
+    def as_dtensor(x):
+        return x if is_dtensor(x) else rewrap(x, mesh)
+
+    k = as_dtensor(k)
+    h, kh = q.shape[2], k.shape[2]
+    heads, rows = [], []
+    for i, (qp, kp) in enumerate(zip(q.placements, k.placements)):
+        n = mesh.size(i)
+        if qp == Shard(0):
+            heads.append(Shard(0))
+            rows.append(Shard(0))
+        elif qp == kp == Shard(2) and h % n == 0 and kh % n == 0:
+            heads.append(Shard(2))
+            rows.append(Replicate())
+        else:
+            heads.append(Replicate())
+            rows.append(Replicate())
+    heads, rows = tuple(heads), tuple(rows)
+    local = local_map(functools.partial(flash_attention, **kw),
+                      out_placements=(heads,),
+                      in_placements=(heads, heads, heads, rows, rows),
+                      device_mesh=mesh, redistribute_inputs=True)
+    return local(q, k, as_dtensor(v), as_dtensor(q_positions),
+                 as_dtensor(kv_positions))
 
 
 def _flash_plain(q, k, v, q_positions, kv_positions, *, causal, window,
@@ -211,7 +279,8 @@ def gqa_train(cfg, p, x, positions, *, causal=True, window=None,
     out = flash_attention(q, k, v, positions, kv_positions, causal=causal,
                           window=window or cfg.window,
                           arange_positions=arange_positions)
-    return matmul(out.reshape(b, t, h * hd), p["wo"])
+    out = matmul(out.reshape(b, t, h * hd), p["wo"])
+    return logical_constraint(out, ("batch", "seq", "embed"))
 
 
 def _fill_cache(k: torch.Tensor, v: torch.Tensor, max_len: int,
@@ -244,7 +313,8 @@ def gqa_prefill(cfg, p, x, positions, max_len: int, *, window=None,
                           window=window, arange_positions=arange_positions)
     out = matmul(out.reshape(b, t, h * hd), p["wo"])
     kc, vc = _fill_cache(k, v, max_len, window)
-    return out, {"k": kc, "v": vc}
+    return (logical_constraint(out, ("batch", "seq", "embed")),
+            {"k": kc, "v": vc})
 
 
 # ------------------------------------------------------------- decode (GQA)
@@ -254,6 +324,12 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype=None, device=None):
     dev = resolve_device(device)
     return {"k": torch.zeros((batch, max_len, kh, hd), dtype=dtype, device=dev),
             "v": torch.zeros((batch, max_len, kh, hd), dtype=dtype, device=dev)}
+
+
+KV_CACHE_AXES = {
+    "k": ("batch", "seq", "kv_heads", "head_dim"),
+    "v": ("batch", "seq", "kv_heads", "head_dim"),
+}
 
 
 def _write_token(cache: torch.Tensor, slot: torch.Tensor,
@@ -300,10 +376,23 @@ def gqa_decode(cfg, p, x, cache, position, *, window=None):
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype).float(), v.float())
     out = out.reshape(b, 1, h * hd).to(x.dtype)
-    return matmul(out, p["wo"]), {"k": k, "v": v}
+    out = matmul(out, p["wo"])
+    return logical_constraint(out, ("batch", "seq", "embed")), {"k": k, "v": v}
 
 
 # ===================================================================== MLA
+MLA_AXES = {
+    "wq_a": ("embed", "kv_lora"),
+    "wq_b": ("kv_lora", "qkv"),
+    "wkv_a": ("embed", "kv_lora"),
+    "wk_b": ("kv_lora", "qkv"),
+    "wv_b": ("kv_lora", "qkv"),
+    "wo": ("qkv", "embed"),
+    "norm_kv": ("kv_lora",),
+    "norm_q": ("kv_lora",),
+}
+
+
 def _rms(x, scale):
     xf = x.float()
     y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + 1e-6)
@@ -347,7 +436,8 @@ def _mla_attend(cfg, p, x, positions, causal, arange_positions):
 def mla_train(cfg, p, x, positions, *, causal=True,
               arange_positions: bool = False):
     """Decompressed MLA over the full sequence."""
-    return _mla_attend(cfg, p, x, positions, causal, arange_positions)[0]
+    out = _mla_attend(cfg, p, x, positions, causal, arange_positions)[0]
+    return logical_constraint(out, ("batch", "seq", "embed"))
 
 
 def mla_prefill(cfg, p, x, positions, max_len: int, *,
@@ -359,7 +449,7 @@ def mla_prefill(cfg, p, x, positions, max_len: int, *,
     pad = max_len - t
     cache = {"c_kv": F.pad(c_kv, (0, 0, 0, pad)),
              "k_rope": F.pad(k_rope[:, :, 0], (0, 0, 0, pad))}
-    return out, cache
+    return logical_constraint(out, ("batch", "seq", "embed")), cache
 
 
 def init_mla_cache(cfg, batch: int, max_len: int, dtype=None, device=None):
@@ -369,6 +459,12 @@ def init_mla_cache(cfg, batch: int, max_len: int, dtype=None, device=None):
                                 dtype=dtype, device=dev),
             "k_rope": torch.zeros((batch, max_len, cfg.rope_head_dim),
                                   dtype=dtype, device=dev)}
+
+
+MLA_CACHE_AXES = {
+    "c_kv": ("batch", "seq", "kv_lora"),
+    "k_rope": ("batch", "seq", "head_dim"),
+}
 
 
 def mla_latent_attention(cfg, p, x, q_nope, q_rope, c_kv, k_rope, valid):
@@ -409,4 +505,5 @@ def mla_decode(cfg, p, x, cache, position):
     max_len = c_kv.shape[1]
     valid = torch.arange(max_len, device=x.device)[None, :] <= position[:, None]
     out = mla_latent_attention(cfg, p, x, q_nope, q_rope, c_kv, k_rope, valid)
-    return out, {"c_kv": c_kv, "k_rope": k_rope}
+    return (logical_constraint(out, ("batch", "seq", "embed")),
+            {"c_kv": c_kv, "k_rope": k_rope})

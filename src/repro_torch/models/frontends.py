@@ -9,6 +9,8 @@ import torch.nn.functional as F
 
 from .layers import matmul
 
+FRONTEND_AXES = {"proj": ("embed", "embed")}
+
 
 def splice_prefix(cfg, p, x: torch.Tensor,
                   prefix_embeds: torch.Tensor) -> torch.Tensor:

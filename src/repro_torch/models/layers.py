@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.axes import logical_constraint
+
 
 def matmul(x: torch.Tensor, w: torch.Tensor, dtype=None) -> torch.Tensor:
     """x @ w; contracts the last dim of x with dim 0 of w.  The output is
@@ -56,12 +58,18 @@ def apply_norm(cfg, p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+NORM_AXES = {"scale": ("embed",), "bias": ("embed",)}
+
+
 # ----------------------------------------------------------------- embedding
+EMBED_AXES = {"table": ("vocab", "embed")}
+
+
 def embed_tokens(cfg, p, tokens: torch.Tensor) -> torch.Tensor:
     x = p["table"].to(cfg.dtype)[tokens]
     if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)  # gemma input scaling
-    return x
+    return logical_constraint(x, ("batch", "seq", "embed"))
 
 
 def unembed(cfg, p, x: torch.Tensor) -> torch.Tensor:
@@ -71,10 +79,18 @@ def unembed(cfg, p, x: torch.Tensor) -> torch.Tensor:
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
-    return logits
+    return logical_constraint(logits, ("batch", "seq", "vocab"))
 
 
 # ----------------------------------------------------------------- MLP
+MLP_AXES = {
+    "wi_gate": ("embed", "mlp"),
+    "wi_up": ("embed", "mlp"),
+    "wi": ("embed", "mlp"),
+    "wo": ("mlp", "embed"),
+}
+
+
 def apply_mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
     if cfg.mlp_kind in ("swiglu", "geglu"):
         gate = matmul(x, p["wi_gate"])
@@ -83,7 +99,9 @@ def apply_mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
         h = gate * matmul(x, p["wi_up"])
     else:
         h = F.gelu(matmul(x, p["wi"]), approximate="tanh")
-    return matmul(h, p["wo"])
+    h = logical_constraint(h, ("batch", "seq", "mlp"))
+    out = matmul(h, p["wo"])
+    return logical_constraint(out, ("batch", "seq", "embed"))
 
 
 # ----------------------------------------------------------------- RoPE

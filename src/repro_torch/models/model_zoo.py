@@ -11,7 +11,7 @@ import torch
 
 from . import transformer
 from .common import ArchConfig
-from .params import _shapes, init_params, leaves
+from .params import _map, _shapes, init_params, leaves, storage_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,6 +24,16 @@ class Model:
         """Seeded parameters on ``device`` (default CUDA); ``master``: the
         training storage, every leaf in ``param_dtype``."""
         return init_params(self.cfg, generator, device=device, master=master)
+
+    def abstract_params(self, *, master: bool = False) -> Any:
+        """The tree of ``init`` as ``meta`` tensors (shapes and storage
+        dtypes, no storage): nothing is allocated."""
+        return _map(_shapes(self.cfg), lambda path, spec: torch.empty(
+            spec[0], dtype=storage_dtype(self.cfg, spec[1], master),
+            device="meta"))
+
+    def params_axes(self) -> Any:
+        return transformer.params_axes(self.cfg)
 
     # -- steps ------------------------------------------------------------
     def forward(self, params, tokens, extra=None):
@@ -41,6 +51,9 @@ class Model:
 
     def init_cache(self, batch, max_len, device=None):
         return transformer.init_cache(self.cfg, batch, max_len, device=device)
+
+    def cache_axes(self):
+        return transformer.cache_axes(self.cfg)
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -19,10 +19,24 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.sharding.axes import logical_constraint, on_replicated
 
 from .layers import matmul
 
 _C = 8.0  # decay sharpness constant from the Griffin paper
+
+RGLRU_AXES = {
+    "w_up_x": ("embed", "mlp"),
+    "w_up_gate": ("embed", "mlp"),
+    "conv_w": ("conv", "mlp"),
+    "conv_b": ("mlp",),
+    "w_a": ("mlp", None),
+    "b_a": ("mlp",),
+    "w_i": ("mlp", None),
+    "b_i": ("mlp",),
+    "lam": ("mlp",),
+    "w_down": ("mlp", "embed"),
+}
 
 
 def causal_conv(p, x: torch.Tensor, state: torch.Tensor = None):
@@ -42,7 +56,8 @@ def _gates(p, xc: torch.Tensor):
                       + p["b_a"].float())
     i = torch.sigmoid(matmul(xc, p["w_i"], dtype=torch.float32)
                       + p["b_i"].float())
-    log_a = _C * r * F.logsigmoid(p["lam"].float())
+    # log_sigmoid's backward has no DTensor sharding rule
+    log_a = _C * r * on_replicated(F.logsigmoid, p["lam"].float())
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
     return a, beta * i * xc.float()
@@ -68,7 +83,9 @@ def rglru_train(cfg, p, x: torch.Tensor, return_state: bool = False):
     xc, conv_tail = causal_conv(p, xb)
     a, b = _gates(p, xc)  # (B, T, w) f32 each
     hf = linear_scan(a, b)
-    out = matmul(hf.to(x.dtype) * gate, p["w_down"])
+    h = logical_constraint(hf.to(x.dtype), ("batch", "seq", "mlp"))
+    out = matmul(h * gate, p["w_down"])
+    out = logical_constraint(out, ("batch", "seq", "embed"))
     if return_state:
         return out, {"h": hf[:, -1], "conv": conv_tail}
     return out
@@ -80,6 +97,9 @@ def init_rglru_state(cfg, batch: int, dtype=torch.float32, device=None):
     return {"h": torch.zeros((batch, w), device=dev),
             "conv": torch.zeros((batch, cfg.rglru_conv_width - 1, w),
                                 dtype=dtype, device=dev)}
+
+
+RGLRU_STATE_AXES = {"h": ("batch", "mlp"), "conv": ("batch", None, "mlp")}
 
 
 def rglru_decode(cfg, p, x: torch.Tensor, state) -> Tuple[torch.Tensor, dict]:

@@ -8,8 +8,11 @@ parameter stacked along a leading group axis, as in the reference; where
 the reference scans over groups, the port loops.  Block kinds: attn |
 local_attn | swa | rglru | mlstm | slstm, each pre-norm residual
 (x += mix(norm(x)); x += mlp(norm(x)), the MLP a MoE FFN for MoE configs
-and skipped where ``d_ff == 0`` or ``mlp_kind == "none"``).  The reference's
-sharding constraints have no counterpart: the port has no mesh.
+and skipped where ``d_ff == 0`` or ``mlp_kind == "none"``).
+:func:`params_axes` and :func:`cache_axes` give the logical axes of every
+parameter and cache leaf (``sharding.axes``); the layers constrain their
+activations by logical names, which acts only under ``axis_rules`` with a
+mesh installed and DTensor operands.
 
 ``forward``, ``prefill`` and ``run_encoder`` build their positions as
 ``arange(T)`` and say so to ``attention.flash_attention``
@@ -36,11 +39,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.sharding.axes import is_dtensor, logical_constraint
 
 from . import attention as attn
 from . import frontends, moe, rglru, xlstm
-from .layers import (apply_mlp, apply_norm, embed_tokens, index_tree, matmul,
-                     stack_trees, unembed)
+from .layers import (EMBED_AXES, MLP_AXES, NORM_AXES, apply_mlp, apply_norm,
+                     embed_tokens, index_tree, matmul, stack_trees, unembed)
 
 Params = Dict[str, Any]
 _ATTN = ("attn", "local_attn", "swa")
@@ -48,6 +52,71 @@ _ATTN = ("attn", "local_attn", "swa")
 
 def _has_mlp(cfg) -> bool:
     return cfg.d_ff > 0 and cfg.mlp_kind != "none"
+
+
+def _block_axes(cfg, kind: str):
+    ax: Dict[str, Any] = {"norm_mix": NORM_AXES if cfg.norm_kind == "layernorm"
+                          else {"scale": ("embed",)}}
+    norm_ax = ax["norm_mix"]
+    if kind in _ATTN:
+        ax["mix"] = attn.MLA_AXES if cfg.use_mla else attn.GQA_AXES
+    elif kind == "rglru":
+        ax["mix"] = rglru.RGLRU_AXES
+    elif kind == "mlstm":
+        ax["mix"] = xlstm.MLSTM_AXES
+    elif kind == "slstm":
+        ax["mix"] = xlstm.SLSTM_AXES
+    if _has_mlp(cfg):
+        ax["norm_mlp"] = norm_ax
+        if cfg.is_moe:
+            ax["mlp"] = {k: v for k, v in moe.MOE_AXES.items()
+                         if k != "shared" or cfg.n_shared_experts}
+        else:
+            ax["mlp"] = {
+                k: MLP_AXES[k] for k in
+                (("wi_gate", "wi_up", "wo")
+                 if cfg.mlp_kind in ("swiglu", "geglu") else ("wi", "wo"))
+            }
+    if cfg.is_encoder_decoder:
+        ax["norm_cross"] = norm_ax
+        ax["cross"] = attn.GQA_AXES
+    return ax
+
+
+def _lift(ax_tree):
+    """Prepend the stacked-groups (or stacked-layers) axis to every leaf."""
+    if isinstance(ax_tree, dict):
+        return {k: _lift(v) for k, v in ax_tree.items()}
+    return ("layers",) + tuple(ax_tree)
+
+
+def params_axes(cfg) -> Any:
+    """Logical-axes tree matching ``init_params`` (leading group dim ->
+    "layers")."""
+    ax: Dict[str, Any] = {
+        "embed": EMBED_AXES,
+        "groups": _lift({f"b{j}_{kind}": _block_axes(cfg, kind)
+                         for j, kind in enumerate(cfg.block_pattern)}),
+        "final_norm": {"scale": ("embed",)} if cfg.norm_kind != "layernorm"
+        else NORM_AXES,
+    }
+    if not cfg.tie_embeddings:
+        ax["head"] = {"kernel": ("embed", "vocab")}
+    if cfg.frontend:
+        ax["frontend"] = frontends.FRONTEND_AXES
+    if cfg.is_encoder_decoder:
+        enc_block_ax = {
+            "norm_mix": NORM_AXES, "mix": attn.GQA_AXES,
+            "norm_mlp": NORM_AXES,
+            "mlp": {"wi": MLP_AXES["wi"], "wo": MLP_AXES["wo"]},
+        }
+        ax["encoder"] = {
+            "layers": _lift(enc_block_ax),
+            "pos": {"pos": ("seq", "embed")},
+            "final_norm": NORM_AXES,
+        }
+        ax["dec_pos"] = {"pos": ("seq", "embed")}
+    return ax
 
 
 def _positions(b: int, t: int, device) -> torch.Tensor:
@@ -181,9 +250,22 @@ def lm_loss(cfg, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
                       if k not in ("tokens", "labels")})
     labels = batch["labels"]
     valid = labels >= 0
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1,
-                          torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    label = torch.clamp(labels, min=0).long()[..., None]
+    if is_dtensor(logits) and any(pl.is_shard(logits.ndim - 1)
+                                  for pl in logits.placements):
+        # vocab-parallel where the vocab is sharded: the logits stay
+        # sharded and only (B, S) partial maxima and sums cross ranks.
+        # logsumexp would gather the vocab, and DTensor has no
+        # vocab-parallel gather, so the log-sum is spelled out (ATen's own
+        # steps) and the pick is a masked sum (one nonzero term, so the
+        # same value)
+        top = logits.detach().amax(-1, keepdim=True)
+        lse = (logits - top).exp().sum(-1).log() + top[..., 0]
+        vocab = torch.arange(logits.shape[-1], device=label.device)
+        picked = torch.where(vocab == label, logits, 0.0).sum(-1)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, label)[..., 0]
     nll = torch.where(valid, lse - picked, 0.0)
     return nll.sum() / torch.clamp(valid.sum(), min=1)
 
@@ -225,6 +307,30 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> Params:
                 "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
             for j, kind in enumerate(cfg.block_pattern)}
     return cache
+
+
+def cache_axes(cfg) -> Any:
+    """Logical axes of the cache tree (prefixed by the groups dim)."""
+    groups = {}
+    for j, kind in enumerate(cfg.block_pattern):
+        if kind in _ATTN:
+            ax = attn.MLA_CACHE_AXES if cfg.use_mla else attn.KV_CACHE_AXES
+        elif kind == "rglru":
+            ax = rglru.RGLRU_STATE_AXES
+        elif kind == "mlstm":
+            ax = xlstm.MLSTM_STATE_AXES
+        else:
+            ax = {"c": ("batch", "embed"), "n": ("batch", "embed"),
+                  "h": ("batch", "embed"), "m": ("batch", "embed"),
+                  "conv": ("batch", None, "embed")}
+        groups[f"b{j}_{kind}"] = _lift(ax)
+    out: Dict[str, Any] = {"groups": groups}
+    if cfg.is_encoder_decoder:
+        out["cross"] = {
+            f"b{j}_{kind}": _lift(attn.KV_CACHE_AXES)
+            for j, kind in enumerate(cfg.block_pattern)
+        }
+    return out
 
 
 # ================================================================ prefill

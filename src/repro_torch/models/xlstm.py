@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.sharding.axes import logical_constraint, on_replicated
 
 from .layers import matmul
 from .rglru import causal_conv as _conv
@@ -33,6 +34,20 @@ def _split_heads(x, nh):
 
 
 # ===================================================================== mLSTM
+MLSTM_AXES = {
+    "w_up": ("embed", "mlp"),
+    "conv_w": ("conv", "mlp"),
+    "conv_b": ("mlp",),
+    "wq": ("mlp", "qkv"),
+    "wk": ("mlp", "qkv"),
+    "wv": ("mlp", "qkv"),
+    "w_if": ("mlp", None),
+    "b_if": (None,),
+    "skip_scale": ("mlp",),
+    "w_down": ("mlp", "embed"),
+}
+
+
 def _mlstm_qkvif(cfg, p, x, conv_state=None):
     """Shared pre-cell computation.  x: (B, T, d)."""
     nh = cfg.n_heads
@@ -46,7 +61,8 @@ def _mlstm_qkvif(cfg, p, x, conv_state=None):
     v = _split_heads(matmul(xm, p["wv"]), nh)
     gif = matmul(xc, p["w_if"], dtype=torch.float32) + p["b_if"].float()
     log_i = gif[..., :nh]  # exponential input gate: i = exp(raw)
-    log_f = F.logsigmoid(gif[..., nh:])  # sigmoid forget gate
+    # sigmoid forget gate; log_sigmoid's backward has no DTensor rule
+    log_f = on_replicated(F.logsigmoid, gif[..., nh:])
     return q, k, v, log_i, log_f, xc, z, conv_state
 
 
@@ -108,6 +124,7 @@ def mlstm_train(cfg, p, x: torch.Tensor, chunk: int = 128,
     h = torch.cat(hs, dim=1).reshape(b, t, nh * hd)
     h = h + p["skip_scale"].to(x.dtype) * xc  # learnable skip
     out = matmul(h * F.silu(z), p["w_down"])
+    out = logical_constraint(out, ("batch", "seq", "embed"))
     if return_state:
         return out, {"C": C, "n": n, "m": m, "conv": conv_tail}
     return out
@@ -123,6 +140,14 @@ def init_mlstm_state(cfg, batch: int, dtype=torch.float32, device=None):
             "m": torch.zeros((batch, nh), device=dev),
             "conv": torch.zeros((batch, CONV_W - 1, di), dtype=cfg.dtype,
                                 device=dev)}
+
+
+MLSTM_STATE_AXES = {
+    "C": ("batch", "heads", None, None),
+    "n": ("batch", "heads", None),
+    "m": ("batch", "heads"),
+    "conv": ("batch", None, "mlp"),
+}
 
 
 def mlstm_decode(cfg, p, x: torch.Tensor, state) -> Tuple[torch.Tensor, dict]:
@@ -147,6 +172,17 @@ def mlstm_decode(cfg, p, x: torch.Tensor, state) -> Tuple[torch.Tensor, dict]:
 
 
 # ===================================================================== sLSTM
+SLSTM_AXES = {
+    "conv_w": ("conv", "embed"),
+    "conv_b": ("embed",),
+    "w_gates": ("embed", None),
+    "r_gates": ("heads", "head_dim", None),
+    "b_gates": (None,),
+    "ff_up": ("embed", "mlp"),
+    "ff_down": ("mlp", "embed"),
+}
+
+
 def _slstm_cell(cfg, p, gx, state):
     """One recurrence step.  gx: (B, 4d) input-gate preactivations."""
     nh = cfg.n_heads
@@ -158,7 +194,7 @@ def _slstm_cell(cfg, p, gx, state):
     g = gx + gr.reshape(b, 4 * cfg.d_model) + p["b_gates"].float()
     gi, gf, gz, go = g.chunk(4, dim=-1)
     # stabilized exponential gating
-    log_f = F.logsigmoid(gf)
+    log_f = on_replicated(F.logsigmoid, gf)
     m_new = torch.maximum(log_f + m, gi)
     i = torch.exp(gi - m_new)
     f = torch.exp(log_f + m - m_new)
@@ -185,6 +221,7 @@ def slstm_train(cfg, p, x: torch.Tensor, return_state: bool = False):
         st = _slstm_cell(cfg, p, gx[:, i], st)
         hs.append(st[2])
     out = _slstm_ff(p, torch.stack(hs, dim=1).to(x.dtype))
+    out = logical_constraint(out, ("batch", "seq", "embed"))
     if return_state:
         cf, nf, hf, mf = st
         return out, {"c": cf, "n": nf, "h": hf, "m": mf, "conv": conv_tail}

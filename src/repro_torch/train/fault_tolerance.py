@@ -14,16 +14,37 @@ At 1000+ nodes, node failure is routine; the reference's contract:
   (deadline-based batch cutoff) — wait-free WFE operations make the cutoff
   a hard bound (no lock can be held by a stalled peer).
 
-The port has ``run_with_restarts``.  ``reshard_state`` re-lays a state out
-on a device mesh through the reference's ``sharding/axes.py``; the port has
-no mesh yet, so it waits for the port's sharding (ROADMAP Queue 1 item 5).
+In the port, ``reshard_state`` recomputes every leaf's DTensor placements
+on the new ``DeviceMesh`` (``sharding.axes.sharding_tree``): a plain tensor
+is distributed, a DTensor on the same mesh redistributed, and a DTensor
+on another mesh gathered to its full value and distributed anew.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Iterable, Optional
 
-__all__ = ["run_with_restarts"]
+__all__ = ["run_with_restarts", "reshard_state"]
+
+
+def reshard_state(state: Any, axes_tree: Any, new_mesh) -> Any:
+    """Re-lay-out ``state`` (nested dicts of tensors) for ``new_mesh``
+    (elastic scale up/down); every leaf keeps its full value."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.sharding.axes import sharding_tree
+    from repro_torch.train.optim import tree_map
+
+    placements = sharding_tree(state, axes_tree, new_mesh)
+
+    def one(leaf, want):
+        if isinstance(leaf, DTensor):
+            if leaf.device_mesh == new_mesh:
+                return leaf.redistribute(new_mesh, want)
+            leaf = leaf.full_tensor()
+        return distribute_tensor(leaf, new_mesh, want)
+
+    return tree_map(one, state, placements)
 
 
 def run_with_restarts(

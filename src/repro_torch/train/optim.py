@@ -7,9 +7,9 @@ decoupled weight decay (``repro/train/optim.py:57-91``), under
 ``no_grad`` and in place: the reference returns new trees, the port
 overwrites the parameters, m, v and step and returns the same objects.
 Every scalar (step, lr, the clip factor) stays a device tensor, so the
-update makes no host sync; reading ``metrics`` does.  The reference's
-ZeRO sharding of m and v is a mesh feature and waits for the port's
-sharding (ROADMAP Queue 1 item 5).
+update makes no host sync; reading ``metrics`` does.  On DTensor
+parameters m and v take each parameter's placements and the update runs
+on DTensors.
 
 Trees are nested dicts; like ``jax.tree`` the helpers here walk them in
 sorted-key order, so leaf lists line up with the reference's.
@@ -49,15 +49,17 @@ def tree_leaves(tree: Any) -> list:
     return [leaf for _, leaf in tree_items(tree)]
 
 
-def tree_map(fn: Callable, tree: Any) -> Any:
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` and of the matching nested dicts
+    ``rest`` (``fn(leaf, *leaves)``); ``tree``'s keys drive."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(t[k] for t in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def adamw_init(params: Any) -> Any:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     device = tree_leaves(params)[0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}

@@ -1168,3 +1168,96 @@ def test_train_step_on_the_card(dev, remat):
                                   tree_items(base)):
         assert p.grad is None and p.is_cuda
         assert not torch.equal(p.cpu(), p0), path
+
+
+# ------------------------------------------------- point scan, mesh, merge
+@pytest.mark.parametrize("r", [1, 300, 1000])
+@pytest.mark.parametrize("t,h", [(4, 2), (512, 10)])
+def test_can_delete_blocks_on_the_card(dev, r, t, h):
+    """``kernels.can_delete_blocks`` (the point form) on CUDA tensors: the
+    kernel, one launch a call, bitwise its plain version and the NumPy
+    backend; ``use_kernel=False`` runs the plain version on the card."""
+    from repro_torch.kernels import can_delete_blocks
+    from repro_torch.kernels.ref import era_scan_ref
+
+    rng = np.random.default_rng(r + t * h)
+    alloc = rng.integers(0, 100, r).astype(np.int32)
+    retire = (alloc + rng.integers(0, 50, r)).astype(np.int32)
+    res = rng.integers(0, 160, (t, h)).astype(np.int32)
+    res[rng.random((t, h)) < 0.5] = INF_ERA32
+    a, b, c = (torch.from_numpy(x).to(dev) for x in (alloc, retire, res))
+    n0 = era_scan.LAUNCHES.n
+    got = can_delete_blocks(a, b, c, use_kernel=True)
+    assert era_scan.LAUNCHES.n == n0 + 1 and got.is_cuda
+    plain = can_delete_blocks(a, b, c)
+    assert era_scan.LAUNCHES.n == n0 + 1 and plain.is_cuda
+    want = _can_delete_numpy(alloc, retire, res.ravel(), res.ravel())
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    np.testing.assert_array_equal(plain.cpu().numpy(), want)
+    np.testing.assert_array_equal(era_scan_ref(a, b, c).cpu().numpy(), want)
+
+
+@pytest.fixture
+def nccl_mesh(dev):
+    """A 1x1 ("data", "model") mesh on a one-rank NCCL group."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    mesh = make_smoke_mesh(dev)
+    assert dist.get_backend() == "nccl"
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_per_shard_launches_the_kernels(nccl_mesh, dtype):
+    """DTensor q, k, v on the one-rank NCCL mesh go through ``local_map``
+    to the kernel route: the forward and backward kernels launch, and the
+    output and gradients are the plain-tensor kernel call's bits."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models import attention
+    from repro_torch.sharding.axes import axis_rules
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, t, h, kh, d = 2, 256, 8, 2, 80
+    arrs = [torch.randn(s, generator=gen, device=dev).to(dtype)
+            for s in ((b, t, h, d), (b, t, kh, d), (b, t, kh, d))]
+    gout = torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype)
+    pos = torch.arange(t, device=dev)[None].expand(b, t)
+    plain = [x.clone().requires_grad_() for x in arrs]
+    want = attention.flash_attention(*plain, pos, pos, causal=True,
+                                     arange_positions=True)
+    (want.float() * gout.float()).sum().backward()
+    dts = [distribute_tensor(x, nccl_mesh, [Shard(0), Replicate()])
+           .requires_grad_() for x in arrs]
+    k0, p0 = attention.FLASH_ROUTES["kernel"].n, \
+        attention.FLASH_ROUTES["plain"].n
+    f0, b0 = flash_attention.LAUNCHES.n, flash_attention.BWD_LAUNCHES.n
+    with axis_rules(nccl_mesh):
+        out = attention.flash_attention(*dts, pos, pos, causal=True,
+                                        arange_positions=True)
+        (out.to_local().float() * gout.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert attention.FLASH_ROUTES["kernel"].n == k0 + 1
+    assert attention.FLASH_ROUTES["plain"].n == p0
+    assert flash_attention.LAUNCHES.n == f0 + 1
+    assert flash_attention.BWD_LAUNCHES.n == b0 + 1
+    assert torch.equal(out.to_local(), want)
+    for x, p in zip(dts, plain):
+        assert torch.equal(x.grad.to_local(), p.grad)
+
+
+def test_merged_era_on_the_card(nccl_mesh):
+    """``merged_era`` over NCCL: a CUDA int64 in, the (one-rank) maximum
+    out on the same device; a Python int in, an int out."""
+    from repro_torch.core.distributed_eras import merged_era
+
+    t = torch.tensor([41], dtype=torch.int64, device="cuda")
+    got = merged_era(t)
+    assert got.is_cuda and got.tolist() == [41] and t.tolist() == [41]
+    assert merged_era(7) == 7
