@@ -167,6 +167,22 @@ Phases, each printing its own line; any failure exits non-zero:
    cut's gradients bitwise ``dequantize(quantize(g + r))``, and the k = 1
    rings of ``ag_matmul``/``rs_matmul`` equal the product; each timed.
    The group is destroyed and the phase's seconds printed.
+10. The launch tooling (``repro_torch.launch``), after phase 9; nothing of
+   it runs on the card but the examples.  (a) 8c's configuration as a
+   dry-run cell (``ShapeSpec("8c", 2048, 8, "train")`` of full-width,
+   full-depth stablelm-3b, f32 masters, AdamW, remat) on a 1x1 mesh of a
+   one-rank fake group, meta tensors: its state's bytes must equal 8c's
+   live state on the card (params, m, v, step) and all its argument bytes
+   that state plus 8c's batch, exactly; its FLOPs printed beside 6 N D, its
+   peak beside 8c's ``max_memory_allocated``, its roofline bound beside
+   8c's measured step (the measured roofline fraction).  (b) ``python -m
+   repro_torch.launch.dryrun --cells`` ``DRYRUN_CELLS`` ``--mesh both`` in a
+   process of its own (a fake 512-rank group): every cell ok but whisper's
+   ``long_500k``, skipped with the reference's reason; then ``python -m
+   repro_torch.launch.report`` on its JSONL (the tables printed), and the
+   sweep again, which must skip every done cell.  (c) The four
+   ``examples/torch_*.py`` on CUDA, each in a process of its own, exiting
+   0 with their last line.  The phase's seconds printed.
 
 The line before the last is the ``kernels`` JSON line (each row with
 ``launches_runtime``, its launches in 4c's 2-worker run; the rows of
@@ -2749,7 +2765,15 @@ def train_slice(dev) -> dict:
     trainer.run(state, loader, steps=TRAIN_STEPS, on_metrics=on_metrics)
     torch.cuda.synchronize()
     counts = {k: ctr.n for k, ctr in counters.items()}
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak = peak_bytes / 2 ** 30
+    # the live state (params, m, v, step) and one step's batch on the card,
+    # for phase 10a
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in _leaves(state)}
+    state_bytes = sum(storages.values())
+    batch_bytes = sum(np.asarray(v).nbytes for v in
+                      loader.data.batch_at(TRAIN_STEPS).values())
     loader.close()
     left = loader.unreclaimed()
     steps = [float(x) for x in np.diff([t0] + stamps) * 1e3]
@@ -2780,6 +2804,8 @@ def train_slice(dev) -> dict:
     del state, trainer
     free_device_memory()
     return dict(counts=counts, ms_per_step=steady, peak_gib=peak,
+                peak_bytes=peak_bytes, state_bytes=state_bytes,
+                batch_bytes=batch_bytes, n_params=n_params,
                 losses=[m["loss"] for m in metrics])
 
 
@@ -3204,6 +3230,168 @@ def mesh_phase(dev, ref: dict) -> dict:
     return row
 
 
+# --------------------------------------------------------- phase 10: launch
+#: the dry run's cells of 10b (one arch per kind and the skipped long_500k
+#: of a full-attention arch), on both production meshes
+DRYRUN_CELLS = ("stablelm-3b:train_4k,stablelm-3b:prefill_32k,"
+                "stablelm-3b:decode_32k,deepseek-v2-236b:decode_32k,"
+                "whisper-small:long_500k")
+#: the examples of 10c, with their arguments and last line
+EXAMPLES = {
+    "torch_quickstart.py": ([], "quickstart OK"),
+    "torch_serve_engine.py": ([], "serve_engine OK"),
+    "torch_train_lm.py": (["--steps", "40"],
+                          "train_lm OK (failure injected + recovered, "
+                          "loss decreased)"),
+    "torch_wfe_schemes_tour.py": ([], "amortized reclamation."),
+}
+
+
+def dryrun_slice(ref: dict) -> None:
+    """10(a): 8c's configuration (full-width, full-depth stablelm-3b, bf16
+    with f32 masters, AdamW, remat, B 8 x S 2048 in 8 microbatches) as a
+    dry-run cell on a 1x1 mesh of a one-rank fake group: its argument
+    bytes against 8c's live state and batch on the card (exactly), its
+    FLOPs against 6 N D, its peak against 8c's ``max_memory_allocated``,
+    and its roofline bound against 8c's measured step."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.dryrun import fake_world, run_cell
+    from repro_torch.launch.hlo_analysis import argument_bytes
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.sharding.axes import axis_rules
+
+    shape = ShapeSpec("8c", TRAIN_SEQ, TRAIN_BATCH, "train")
+    fake_world(1)
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(1).reshape(1, 1),
+                          mesh_dim_names=("data", "model"))
+        rec = run_cell("stablelm-3b", "8c", False, shape=shape, mesh=mesh,
+                       verbose=False)
+        with axis_rules(mesh):
+            cell = build_cell(get_config("stablelm-3b"), shape, mesh)
+        state_bytes = argument_bytes(cell.args[0])
+    finally:
+        dist.destroy_process_group()
+    ok = rec["status"] == "ok"
+    mem, ro = rec.get("memory", {}), rec.get("roofline", {})
+    want = ref.get("state_bytes", -1) + ref.get("batch_bytes", -1)
+    phase("10a 8c as a dry-run cell (1x1 mesh, meta tensors): argument "
+          "bytes = 8c's live state + batch on the card",
+          ok and state_bytes == ref.get("state_bytes")
+          and mem.get("argument_bytes") == want,
+          f"state {state_bytes} (8c {ref.get('state_bytes')}), all "
+          f"arguments {mem.get('argument_bytes')} (8c's state + batch "
+          f"{want}); {rec.get('error', '')}")
+    if not ok:
+        return
+    flops, mfl = rec["cost"]["flops_per_device"], ro["model_flops"]
+    measured_s = ref.get("ms_per_step", float("nan")) / 1e3
+    print(f"  10a: predicted {flops:.6e} FLOPs a step against 6 N D "
+          f"{mfl:.6e} (ratio {flops / mfl:.4f}; N {ref.get('n_params')}, "
+          f"D {TRAIN_BATCH * TRAIN_SEQ}); predicted peak "
+          f"{mem['peak_bytes'] / 2**30:.2f} GiB against 8c's "
+          f"max_memory_allocated {ref.get('peak_gib', float('nan')):.2f} "
+          f"GiB (ratio {mem['peak_bytes'] / ref.get('peak_bytes', 1):.4f}); "
+          f"bound_step_time {ro['bound_step_time_s'] * 1e3:.1f} ms "
+          f"({ro['dominant']}: compute {ro['compute_s'] * 1e3:.1f}, memory "
+          f"{ro['memory_s'] * 1e3:.1f}, collective "
+          f"{ro['collective_s'] * 1e3:.1f}) against 8c's measured "
+          f"{measured_s * 1e3:.1f} ms: measured roofline fraction "
+          f"{ro['bound_step_time_s'] / measured_s:.4f}; the cell's own "
+          f"roofline_fraction {ro['roofline_fraction']:.4f} "
+          f"(analysis {rec['analyze_s']} s) on {gpu_name_and_limit()}",
+          flush=True)
+
+
+def _run(cmd, timeout: int = 600):
+    out = subprocess.run(cmd, cwd=ROOT, text=True, capture_output=True,
+                         timeout=timeout,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    return out.returncode, out.stdout, out.stderr
+
+
+def dryrun_sweep() -> None:
+    """10(b): the sweep CLI on ``DRYRUN_CELLS`` on both production meshes
+    of a 512-rank fake group, in a process of its own; the report of its
+    JSONL; the same sweep again, which must skip every done cell."""
+    import tempfile
+
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_")) / "cells.jsonl"
+    sweep = [sys.executable, "-m", "repro_torch.launch.dryrun", "--cells",
+             DRYRUN_CELLS, "--mesh", "both", "--out", str(out)]
+    t0 = time.perf_counter()
+    rc, log, err = _run(sweep)
+    rows = [json.loads(line) for line in open(out)] if out.exists() else []
+    reason = ("long_500k needs sub-quadratic attention; whisper-small is "
+              "full-attention (DESIGN.md §4)")
+    want = {(c.split(":")[0], c.split(":")[1], m)
+            for c in DRYRUN_CELLS.split(",") for m in ("16x16", "2x16x16")}
+    got = {(r["arch"], r["shape"], r["mesh"]): r for r in rows}
+    statuses_ok = set(got) == want and all(
+        (r["status"] == "skipped" and r.get("reason") == reason)
+        if r["shape"] == "long_500k" else r["status"] == "ok"
+        for r in got.values())
+    def tag(key, r):
+        took = f" {r['analyze_s']} s" if r["status"] == "ok" else ""
+        return f"{key[0]}:{key[1]}@{key[2]} {r['status']}{took}"
+
+    phase("10b dryrun --mesh both on 5 cells", rc == 0 and statuses_ok,
+          f"rc={rc}, {len(rows)} records in {time.perf_counter() - t0:.1f} "
+          f"s: " + ", ".join(tag(k, r) for k, r in sorted(got.items())))
+    if rc != 0 or not statuses_ok:
+        print(log[-3000:] + err[-3000:], flush=True)
+    rc2, report, err2 = _run([sys.executable, "-m",
+                              "repro_torch.launch.report", str(out)])
+    phase("10b report", rc2 == 0 and "### Roofline" in report,
+          f"rc={rc2}" + ("" if rc2 == 0 else f": {err2[-2000:]}"))
+    print(report, flush=True)
+    rc3, again, err3 = _run(sweep)
+    n_after = len(open(out).readlines()) if out.exists() else -1
+    phase("10b the sweep again skips every done cell",
+          rc3 == 0 and again.count(": skipped") == len(want)
+          and n_after == len(rows),
+          f"rc={rc3}, {again.count(': skipped')} of {len(want)} skipped, "
+          f"{n_after} records")
+
+
+def examples_on_card() -> None:
+    """10(c): the four ``examples/torch_*.py`` on CUDA, each in a process
+    of its own, started together."""
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / name), *args], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for name, (args, _) in EXAMPLES.items()}
+    for name, proc in procs.items():
+        try:
+            log, _ = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+        last = EXAMPLES[name][1]
+        lines = log.strip().splitlines()
+        ok = proc.returncode == 0 and bool(lines) and lines[-1] == last
+        phase(f"10c examples/{name} on CUDA", ok,
+              f"rc={proc.returncode} after {time.perf_counter() - t0:.1f} s: "
+              + " | ".join(lines[-3:])[-400:])
+        if not ok:
+            print(log[-3000:], flush=True)
+
+
+def launch_phase(ref: dict) -> None:
+    """Phase 10: the launch tooling and the examples, after phase 9."""
+    t10 = time.perf_counter()
+    guarded("10a dry-run cell of 8c", dryrun_slice, ref)
+    guarded("10b dry-run sweep", dryrun_sweep)
+    guarded("10c examples", examples_on_card)
+    print(f"  phase 10: {time.perf_counter() - t10:.1f} s on "
+          f"{gpu_name_and_limit()}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3308,6 +3496,7 @@ def main() -> int:
     print(f"  phase 7: {time.perf_counter() - t7:.1f} s", flush=True)
     train = train_phase(dev)
     point_row = mesh_phase(dev, train.get("train", {}))
+    launch_phase(train.get("train", {}))
 
     # one row per (kernel, main-path shape) under the kernel's own name;
     # the first row of each name is at the shape earlier versions of this

@@ -3,10 +3,9 @@
 
 ``--smoke`` (the default, and the only mode the flag allows): the REDUCED
 config of the selected arch runs real steps with checkpointing and
-restart.  The reference's full-config mesh dry run
-(``launch/dryrun.py``) waits for the port's launch tooling (ROADMAP
-Queue 1 item 1).  Weights are random, from generator seed 0 on
-the device.
+restart.  The full-config mesh dry run is ``repro_torch.launch.dryrun``
+(``python -m repro_torch.launch.dryrun --arch ... --shape train_4k``).
+Weights are random, from generator seed 0 on the device.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \

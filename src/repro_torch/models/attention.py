@@ -55,9 +55,12 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as flash_kernel
-from repro_torch.sharding.axes import is_dtensor, logical_constraint, rewrap
+from repro_torch.sharding.axes import (flatten_last, is_dtensor,
+                                       logical_constraint, per_shard,
+                                       rewrap, unflatten_last)
 
 from .layers import apply_rope, matmul
+from .loops import counted_range
 
 NEG_INF = -1e30
 
@@ -78,9 +81,9 @@ def _qkv(cfg, p, x, positions, rope=True):
     """x (B, T, d) -> q (B, T, H, hd), k and v (B, T, KH, hd)."""
     b, t, _ = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = matmul(x, p["wq"]).reshape(b, t, h, hd)
-    k = matmul(x, p["wk"]).reshape(b, t, kh, hd)
-    v = matmul(x, p["wv"]).reshape(b, t, kh, hd)
+    q = unflatten_last(matmul(x, p["wq"]), (h, hd))
+    k = unflatten_last(matmul(x, p["wk"]), (kh, hd))
+    v = unflatten_last(matmul(x, p["wv"]), (kh, hd))
     if rope and cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -151,7 +154,6 @@ def _flash_per_shard(q, k, v, q_positions, kv_positions, **kw):
     head h // G), else ``Replicate()``; the positions follow the batch
     sharding.  The result (B, Tq, H, Dv) has those placements.  Plain
     tensors among k, v and the positions count as replicated."""
-    from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = q.device_mesh
@@ -160,6 +162,21 @@ def _flash_per_shard(q, k, v, q_positions, kv_positions, **kw):
         return x if is_dtensor(x) else rewrap(x, mesh)
 
     k = as_dtensor(k)
+    heads, rows = _per_shard_layout(q, k)
+    local = local_map(functools.partial(flash_attention, **kw),
+                      out_placements=(heads,),
+                      in_placements=(heads, heads, heads, rows, rows),
+                      device_mesh=mesh, redistribute_inputs=True)
+    return local(q, k, as_dtensor(v), as_dtensor(q_positions),
+                 as_dtensor(kv_positions))
+
+
+def _per_shard_layout(q, k) -> tuple:
+    """(placements of q, k and v, placements of per-row tensors) for
+    attention run shard by shard (:func:`_flash_per_shard`)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = q.device_mesh
     h, kh = q.shape[2], k.shape[2]
     heads, rows = [], []
     for i, (qp, kp) in enumerate(zip(q.placements, k.placements)):
@@ -173,13 +190,7 @@ def _flash_per_shard(q, k, v, q_positions, kv_positions, **kw):
         else:
             heads.append(Replicate())
             rows.append(Replicate())
-    heads, rows = tuple(heads), tuple(rows)
-    local = local_map(functools.partial(flash_attention, **kw),
-                      out_placements=(heads,),
-                      in_placements=(heads, heads, heads, rows, rows),
-                      device_mesh=mesh, redistribute_inputs=True)
-    return local(q, k, as_dtensor(v), as_dtensor(q_positions),
-                 as_dtensor(kv_positions))
+    return tuple(heads), tuple(rows)
 
 
 def _flash_plain(q, k, v, q_positions, kv_positions, *, causal, window,
@@ -216,7 +227,7 @@ def _flash_plain(q, k, v, q_positions, kv_positions, *, causal, window,
     band_chunks = -(-window // kv_chunk) + 1 if banded else nk
 
     outs = []
-    for i in range(nq):
+    for i in counted_range(nq, q):
         qi = qc[:, i].float()  # (B, c, KV, G, D)
         qpos = qpos_c[:, i]
         m = torch.full((b, kh, g, q_chunk), NEG_INF, device=dev)
@@ -231,7 +242,7 @@ def _flash_plain(q, k, v, q_positions, kv_positions, *, causal, window,
             start = torch.clamp(hi - (band_chunks - 1), min=0)
             idxs = torch.clamp(start + torch.arange(band_chunks, device=dev),
                                max=nk - 1)
-        for j in range(band_chunks):
+        for j in counted_range(band_chunks, q):
             if banded:
                 sel = idxs[j:j + 1]
                 kj = kc.index_select(1, sel)[:, 0]
@@ -257,6 +268,7 @@ def _flash_plain(q, k, v, q_positions, kv_positions, *, causal, window,
             m = m_new
         out = acc / torch.clamp(l, min=1e-30)[..., None]  # (B,KV,G,cq,Dv)
         outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))
+    outs += outs[-1:] * (nq - len(outs))  # two trips on meta tensors
     out = torch.stack(outs, dim=1).reshape(b, nq * q_chunk, h, dv)
     return out[:, :tq]
 
@@ -273,13 +285,13 @@ def gqa_train(cfg, p, x, positions, *, causal=True, window=None,
         q, k, v = _qkv(cfg, p, x, positions)
         kv_positions = positions
     else:  # cross-attention: q from x, k/v precomputed from the encoder
-        q = matmul(x, p["wq"]).reshape(b, t, h, hd)
+        q = unflatten_last(matmul(x, p["wq"]), (h, hd))
         k, v = kv_override
         arange_positions = False
     out = flash_attention(q, k, v, positions, kv_positions, causal=causal,
                           window=window or cfg.window,
                           arange_positions=arange_positions)
-    out = matmul(out.reshape(b, t, h * hd), p["wo"])
+    out = matmul(flatten_last(out), p["wo"])
     return logical_constraint(out, ("batch", "seq", "embed"))
 
 
@@ -311,8 +323,9 @@ def gqa_prefill(cfg, p, x, positions, max_len: int, *, window=None,
     q, k, v = _qkv(cfg, p, x, positions)
     out = flash_attention(q, k, v, positions, positions, causal=True,
                           window=window, arange_positions=arange_positions)
-    out = matmul(out.reshape(b, t, h * hd), p["wo"])
-    kc, vc = _fill_cache(k, v, max_len, window)
+    out = matmul(flatten_last(out), p["wo"])
+    kc, vc = per_shard(functools.partial(_fill_cache, max_len=max_len,
+                                         window=window), k, v)
     return (logical_constraint(out, ("batch", "seq", "embed")),
             {"k": kc, "v": vc})
 
@@ -332,6 +345,29 @@ KV_CACHE_AXES = {
 }
 
 
+def _write_token_local(cache, slot, row):
+    """The indexed write of :func:`_write_token` into a DTensor cache, on
+    each rank's shard: ``row`` takes the cache's layout of its batch and
+    trailing dims and ``slot`` its batch layout, so every rank writes its
+    own rows (the cache's slots dim must not be sharded)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, placements = cache.device_mesh, cache.placements
+    if Shard(1) in placements:
+        raise NotImplementedError("a decode cache sharded along its slots")
+    row_pl = [Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1 else p
+              for p in placements]
+    slot_pl = [p if p == Shard(0) else Replicate() for p in placements]
+    row = (row if is_dtensor(row) else rewrap(row, mesh)).redistribute(
+        mesh, row_pl).to_local()
+    slot = (slot if is_dtensor(slot) else rewrap(slot, mesh)).redistribute(
+        mesh, slot_pl).to_local()
+    local = cache.to_local()
+    rows = torch.arange(local.shape[0], device=local.device)
+    local[rows, slot.long()] = row.to(local.dtype)
+    return cache
+
+
 def _write_token(cache: torch.Tensor, slot: torch.Tensor,
                  row: torch.Tensor) -> torch.Tensor:
     """Write each batch row's new entry ``row`` (B, ...) at ``slot`` (B,) of
@@ -341,6 +377,8 @@ def _write_token(cache: torch.Tensor, slot: torch.Tensor,
     from .perf_flags import FLAGS
 
     if FLAGS["scatter_cache_update"]:
+        if is_dtensor(cache):
+            return _write_token_local(cache, slot, row)
         rows = torch.arange(cache.shape[0], device=cache.device)
         cache[rows, slot.long()] = row.to(cache.dtype)
         return cache
@@ -349,12 +387,27 @@ def _write_token(cache: torch.Tensor, slot: torch.Tensor,
     return cache * (1 - oh) + oh * row[:, None].to(cache.dtype)
 
 
+def _decode_attend(q, k, v, valid):
+    """One query token against the cache: q (B, 1, H, hd), k and v (B, S,
+    KH, hd), valid (B, S) -> (B, 1, H, hd) in f32.  On DTensors
+    :func:`gqa_decode` runs it shard by shard (``local_map``), as
+    :func:`_flash_per_shard` runs the flash route."""
+    b, _, h, hd = q.shape
+    kh = k.shape[2]
+    s = torch.einsum("bqkgd,bskd->bkgqs",
+                     q.reshape(b, 1, kh, h // kh, hd).float(), k.float()
+                     ) / math.sqrt(hd)
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype).float(), v.float())
+    return out.reshape(b, 1, h, hd)
+
+
 def gqa_decode(cfg, p, x, cache, position, *, window=None):
     """One-token decode: x (B, 1, d); cache k/v (B, S, KH, D); position (B,).
     Returns (out, cache); see :func:`_write_token` for the cache update."""
     b = x.shape[0]
-    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    g = h // kh
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
     q, k1, v1 = _qkv(cfg, p, x, position[:, None])
     max_len = cache["k"].shape[1]
     slot = position if window is None else position % window
@@ -369,12 +422,18 @@ def gqa_decode(cfg, p, x, cache, position, *, window=None):
         valid = kv_pos >= 0  # slots not yet written
     else:
         valid = slots <= position[:, None]
-    s = torch.einsum("bqkgd,bskd->bkgqs",
-                     q.reshape(b, 1, kh, g, hd).float(), k.float()
-                     ) / math.sqrt(hd)
-    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype).float(), v.float())
+    if is_dtensor(q):
+        from torch.distributed.tensor.experimental import local_map
+
+        heads, rows = _per_shard_layout(q, k)
+        attend = local_map(_decode_attend, out_placements=(heads,),
+                           in_placements=(heads, heads, heads, rows),
+                           device_mesh=q.device_mesh,
+                           redistribute_inputs=True)
+        valid = valid if is_dtensor(valid) else rewrap(valid, q.device_mesh)
+    else:
+        attend = _decode_attend
+    out = attend(q, k, v, valid)
     out = out.reshape(b, 1, h * hd).to(x.dtype)
     out = matmul(out, p["wo"])
     return logical_constraint(out, ("batch", "seq", "embed")), {"k": k, "v": v}
@@ -447,8 +506,10 @@ def mla_prefill(cfg, p, x, positions, max_len: int, *,
     out, c_kv, k_rope = _mla_attend(cfg, p, x, positions, True,
                                     arange_positions)
     pad = max_len - t
-    cache = {"c_kv": F.pad(c_kv, (0, 0, 0, pad)),
-             "k_rope": F.pad(k_rope[:, :, 0], (0, 0, 0, pad))}
+    c_kv, k_rope = per_shard(
+        lambda c, r: (F.pad(c, (0, 0, 0, pad)), F.pad(r, (0, 0, 0, pad))),
+        c_kv, k_rope[:, :, 0])
+    cache = {"c_kv": c_kv, "k_rope": k_rope}
     return logical_constraint(out, ("batch", "seq", "embed")), cache
 
 

@@ -7,6 +7,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.axes import per_shard
+
 from .layers import matmul
 
 FRONTEND_AXES = {"proj": ("embed", "embed")}
@@ -22,4 +24,7 @@ def splice_prefix(cfg, p, x: torch.Tensor,
         pad = 0
     mask = (torch.arange(x.shape[1], device=x.device)
             < prefix_embeds.shape[1])[None, :, None]
-    return torch.where(mask, F.pad(proj, (0, 0, 0, pad)), x)
+    # the pad per shard: DTensor's pad has a faulty rule in some torch
+    # versions
+    return torch.where(mask, per_shard(lambda t: F.pad(t, (0, 0, 0, pad)),
+                                       proj), x)

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.axes import logical_constraint
+from repro_torch.sharding.axes import is_dtensor, logical_constraint, rewrap
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -66,10 +66,53 @@ EMBED_AXES = {"table": ("vocab", "embed")}
 
 
 def embed_tokens(cfg, p, tokens: torch.Tensor) -> torch.Tensor:
-    x = p["table"].to(cfg.dtype)[tokens]
+    table = p["table"].to(cfg.dtype)
+    if is_dtensor(table) and table.device_mesh.size() > 1:
+        x = _lookup_per_shard(table, tokens)
+    else:
+        x = table[tokens]
     if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)  # gemma input scaling
     return logical_constraint(x, ("batch", "seq", "embed"))
+
+
+def _lookup_per_shard(table, tokens):
+    """``table[tokens]`` for a DTensor table on a mesh, vocab-parallel and
+    local: the table's embed dim is gathered, each rank looks its tokens up
+    in the vocab rows it holds (zero for a row another rank holds), and the
+    result is ``Partial`` over the mesh dims the vocab shards on, which the
+    caller's layout constraint sums.  DTensor's own rule for the gather
+    (and for its gradient's scatter) differs between torch versions and
+    refuses a batch sharded over two mesh dims in some."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    tokens = tokens if is_dtensor(tokens) else rewrap(tokens, mesh)
+    vocab = tuple(Shard(0) if p == Shard(0) else Replicate()
+                  for p in table.placements)
+    rows = tuple(Shard(0) if t == Shard(0) and v != Shard(0) else Replicate()
+                 for t, v in zip(tokens.placements, vocab))
+    out = tuple(Partial() if v == Shard(0) else r
+                for v, r in zip(vocab, rows))
+    # a rank's table gradient covers its own rows' tokens: summed over the
+    # mesh dims the tokens shard on
+    grad = tuple(Partial() if r == Shard(0) else v
+                 for v, r in zip(vocab, rows))
+    _, (start, _) = compute_local_shape_and_global_offset(table.shape, mesh,
+                                                          vocab)
+
+    def local(w, tok):
+        ids = tok.long() - start
+        hit = (ids >= 0) & (ids < w.shape[0])
+        return w[ids.clamp(0, w.shape[0] - 1)] * hit[..., None].to(w.dtype)
+
+    return local_map(local, out_placements=(out,),
+                     in_placements=(vocab, rows),
+                     in_grad_placements=(grad, rows), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
 
 
 def unembed(cfg, p, x: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,7 @@ Dispatch runs in G groups of the batch, G the data-parallel degree of the
 installed mesh (``_dispatch_groups``), as in the reference; without a mesh
 G is 1, the global dispatch.  On a mesh each rank runs the routing, the
 sort and the dispatch and combine gathers and scatters on its own groups
-only, with plain local ops inside ``local_map`` (:func:`_group_local`),
+only, with plain local ops inside ``local_map`` (``sharding.axes.per_rows``),
 and the expert products run on DTensors in the expert-parallel layout:
 the reshards between the two layouts are the layer's collectives.  The
 combine sums each token's k outputs in a fixed order (no ``index_add_``,
@@ -34,7 +34,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.axes import is_dtensor, logical_constraint
+from repro_torch.sharding.axes import logical_constraint, per_rows
 
 from .layers import matmul, matmul_f32
 
@@ -170,32 +170,6 @@ def _combine(k: int, out_buf: torch.Tensor, order: torch.Tensor,
     return per_choice.reshape(g, -1, k, d).sum(dim=2)
 
 
-def _group_local(fn, xf, *args, summed=(), n_out=1):
-    """``fn(*args)`` on each rank's own dispatch groups: where ``xf`` (the
-    (G, Tl, d) tokens) is a DTensor, through ``local_map`` with every
-    tensor argument and output sharded along G as ``xf`` is (``Shard(0)``
-    on the data axes, else ``Replicate()``); an argument whose index is in
-    ``summed`` enters whole and takes its gradient summed over the groups.
-    Without a mesh, ``fn(*args)``."""
-    if not is_dtensor(xf):
-        return fn(*args)
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-
-    rows = tuple(Shard(0) if p == Shard(0) else Replicate()
-                 for p in xf.placements)
-    whole = tuple(Replicate() for _ in rows)
-    partial = tuple(Partial() if p == Shard(0) else p for p in rows)
-    local = local_map(
-        fn, out_placements=(rows,) * n_out,
-        in_placements=tuple(whole if i in summed else rows
-                            for i in range(len(args))),
-        in_grad_placements=tuple(partial if i in summed else rows
-                                 for i in range(len(args))),
-        device_mesh=xf.device_mesh, redistribute_inputs=True)
-    return local(*args)
-
-
 def apply_moe(cfg, p, x: torch.Tensor,
               capacity: Optional[int] = None) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d).  Group-local sort-based capacity dispatch
@@ -208,7 +182,7 @@ def apply_moe(cfg, p, x: torch.Tensor,
 
     # built data-local (each rank its own groups), then resharded to the
     # expert-parallel layout
-    buf, order, slot, keep, sw = _group_local(
+    buf, order, slot, keep, sw = per_rows(
         functools.partial(_dispatch, cfg, capacity), xf, xf, p["router"],
         summed=(1,), n_out=5)
     buf = logical_constraint(buf, ("batch", None, None, "embed"))
@@ -225,7 +199,7 @@ def apply_moe(cfg, p, x: torch.Tensor,
 
     # combine: back to data-local, then each rank its own groups
     out_buf = logical_constraint(out_buf, ("batch", None, None, "embed"))
-    out = _group_local(functools.partial(_combine, cfg.top_k), xf, out_buf,
+    out = per_rows(functools.partial(_combine, cfg.top_k), xf, out_buf,
                        order, slot, keep, sw)
     out = logical_constraint(out, ("batch", None, "embed"))
 

@@ -39,7 +39,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.sharding.axes import is_dtensor, logical_constraint
+from repro_torch.sharding.axes import (flatten_last, is_dtensor,
+                                       logical_constraint, per_rows,
+                                       unflatten_last)
 
 from . import attention as attn
 from . import frontends, moe, rglru, xlstm
@@ -140,10 +142,9 @@ def _cross_train(cfg, bp, x, positions, cross_kv):
 
 
 def _cross_kv(cfg, bp, enc_out, enc_pos):
-    b, te, _ = enc_out.shape
     kh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    k = matmul(enc_out, bp["cross"]["wk"]).reshape(b, te, kh, hd)
-    v = matmul(enc_out, bp["cross"]["wv"]).reshape(b, te, kh, hd)
+    k = unflatten_last(matmul(enc_out, bp["cross"]["wk"]), (kh, hd))
+    v = unflatten_last(matmul(enc_out, bp["cross"]["wv"]), (kh, hd))
     return (k, v), enc_pos
 
 
@@ -409,13 +410,18 @@ def _mix_decode(cfg, kind, bp, x, cache_one, position, cross_cache=None):
         h = apply_norm(cfg, bp["norm_cross"], x)
         b, te = cross_cache["k"].shape[:2]
         hq, hd = cfg.n_heads, cfg.resolved_head_dim
-        q = matmul(h, bp["cross"]["wq"]).reshape(b, 1, hq, hd)
+        q = unflatten_last(matmul(h, bp["cross"]["wq"]), (hq, hd))
         q_pos = torch.full((b, 1), te, dtype=torch.long, device=x.device)
         o = attn.flash_attention(q, cross_cache["k"], cross_cache["v"],
                                  q_pos, _positions(b, te, x.device),
                                  causal=False)
-        x = x + matmul(o.reshape(b, 1, hq * hd), bp["cross"]["wo"])
+        x = x + matmul(flatten_last(o), bp["cross"]["wo"])
     return _ffn(cfg, bp, x), c
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (whose storage a write lands in), else x."""
+    return x.to_local() if is_dtensor(x) else x
 
 
 @torch.no_grad()
@@ -429,7 +435,10 @@ def decode_step(cfg, params, cache: Params, tokens: torch.Tensor,
     x = embed_tokens(cfg, params["embed"], tokens[:, None])
     if cfg.is_encoder_decoder:
         table = params["dec_pos"]["pos"].to(cfg.dtype)
-        x = x + table[torch.clamp(positions, max=table.shape[0] - 1)][:, None]
+        # each row's position on the rank that holds the row
+        pos = per_rows(lambda t, p: t[torch.clamp(p, max=t.shape[0] - 1)],
+                       positions, table, positions, summed=(0,))
+        x = x + pos[:, None]
     for g in range(cfg.n_groups):
         gp = index_tree(params["groups"], g)
         for j, kind in enumerate(cfg.block_pattern):
@@ -441,6 +450,10 @@ def decode_step(cfg, params, cache: Params, tokens: torch.Tensor,
                                  index_tree(stacked, g), positions, cross)
             for leaf, val in new.items():
                 dst = stacked[leaf][g]
-                if val.data_ptr() != dst.data_ptr():  # not written in place
+                if _local(val).data_ptr() != _local(dst).data_ptr():
+                    # not written in place
+                    if is_dtensor(dst):
+                        val = val.redistribute(dst.device_mesh,
+                                               dst.placements)
                     dst.copy_(val)
     return _logits(cfg, params, x)[:, 0], cache

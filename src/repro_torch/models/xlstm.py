@@ -18,9 +18,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.sharding.axes import logical_constraint, on_replicated
+from repro_torch.sharding.axes import (flatten_last, logical_constraint,
+                                       on_replicated, per_rows,
+                                       unflatten_last)
 
 from .layers import matmul
+from .loops import counted_range
 from .rglru import causal_conv as _conv
 
 MLSTM_PROJ = 2  # up-projection factor (paper)
@@ -29,8 +32,7 @@ CONV_W = 4
 
 
 def _split_heads(x, nh):
-    b, t, d = x.shape
-    return x.reshape(b, t, nh, d // nh)
+    return unflatten_last(x, (nh, x.shape[-1] // nh))
 
 
 # ===================================================================== mLSTM
@@ -115,13 +117,15 @@ def mlstm_train(cfg, p, x: torch.Tensor, chunk: int = 128,
     n = torch.zeros((b, nh, hd), device=dev)
     m = torch.zeros((b, nh), device=dev)
     hs = []
-    for c0 in range(0, t, chunk):
-        sl = slice(c0, c0 + chunk)
-        C, n, m, h = _mlstm_chunk(C, n, m, q[:, sl].float(), k[:, sl].float(),
-                                  v[:, sl].float(), log_i[:, sl],
-                                  log_f[:, sl], tril)
+    for c in counted_range(t // chunk, x):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        # each batch row's recurrence on the rank that holds the row
+        C, n, m, h = per_rows(_mlstm_chunk, q, C, n, m, q[:, sl].float(),
+                              k[:, sl].float(), v[:, sl].float(),
+                              log_i[:, sl], log_f[:, sl], tril, n_out=4)
         hs.append(h.to(x.dtype))
-    h = torch.cat(hs, dim=1).reshape(b, t, nh * hd)
+    hs += hs[-1:] * (t // chunk - len(hs))  # two trips on meta tensors
+    h = flatten_last(torch.cat(hs, dim=1))  # (B, T, nh * hd)
     h = h + p["skip_scale"].to(x.dtype) * xc  # learnable skip
     out = matmul(h * F.silu(z), p["w_down"])
     out = logical_constraint(out, ("batch", "seq", "embed"))
@@ -216,10 +220,17 @@ def slstm_train(cfg, p, x: torch.Tensor, return_state: bool = False):
     gx = matmul(F.silu(xc), p["w_gates"], dtype=torch.float32)  # (B, T, 4d)
     zeros = torch.zeros((b, d), device=x.device)
     st = (zeros, zeros, zeros, torch.full((b, d), -1e30, device=x.device))
+    def cell(g, c, n, h, m, r_gates, b_gates):
+        return _slstm_cell(cfg, {"r_gates": r_gates, "b_gates": b_gates}, g,
+                           (c, n, h, m))
+
     hs = []
-    for i in range(t):
-        st = _slstm_cell(cfg, p, gx[:, i], st)
+    for i in counted_range(t, x):
+        # each batch row's step on the rank that holds the row
+        st = per_rows(cell, gx, gx[:, i], *st, p["r_gates"], p["b_gates"],
+                      summed=(5, 6), n_out=4)
         hs.append(st[2])
+    hs += hs[-1:] * (t - len(hs))  # two trips on meta tensors
     out = _slstm_ff(p, torch.stack(hs, dim=1).to(x.dtype))
     out = logical_constraint(out, ("batch", "seq", "embed"))
     if return_state:

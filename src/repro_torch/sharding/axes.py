@@ -187,16 +187,113 @@ def is_dtensor(x) -> bool:
 def logical_constraint(x, logical_axes: Sequence[Optional[str]]):
     """Redistribute a DTensor to the placements its logical names resolve
     to on the installed mesh; ``x`` itself without a mesh or when it is not
-    a DTensor."""
+    a DTensor.  As JAX's sharding constraint does, it also lays out the
+    gradient that flows back through it (on a mesh of more than one
+    device): a gradient in another layout takes these placements."""
     mesh = getattr(_CTX, "mesh", None)
     if mesh is None or not is_dtensor(x):
         return x
     spec = logical_to_spec(logical_axes, x.shape, mesh,
                            getattr(_CTX, "rules", None))
     placements = spec_to_placements(spec, mesh)
+    if x.device_mesh.size() > 1:
+        return _Constrain.apply(x, placements)
     if tuple(x.placements) == placements:
         return x
     return x.redistribute(x.device_mesh, placements)
+
+
+class _Constrain(torch.autograd.Function):
+    """``x`` in ``placements``, and its gradient in ``placements``."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        if tuple(x.placements) == placements:
+            return x.view_as(x)
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements), None
+
+
+def unflatten_last(x, sizes: Sequence[int]):
+    """``x`` with its last dim split into ``sizes``.  Where ``x`` is a
+    DTensor sharded along that dim on a mesh dim whose size does not divide
+    ``sizes[0]``, that mesh dim first gathers it (DTensor cannot split an
+    uneven shard; the reference's partitioner moves the data too)."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+
+        last, mesh = Shard(x.ndim - 1), x.device_mesh
+        want = tuple(Replicate() if p == last and sizes[0] % mesh.size(i)
+                     else p for i, p in enumerate(x.placements))
+        if want != tuple(x.placements):
+            x = x.redistribute(mesh, want)
+    return x.reshape(*x.shape[:-1], *sizes)
+
+
+def flatten_last(x, n: int = 2):
+    """``x`` with its last ``n`` dims merged.  On a DTensor the gradient
+    takes the merged output's layout before it is split again (autograd's
+    split of a gradient sharded unevenly, e.g. 10 heads over 16 ranks, has
+    no DTensor rule)."""
+    y = x.reshape(*x.shape[:-n], -1)
+    if is_dtensor(y) and y.device_mesh.size() > 1:
+        y = _Constrain.apply(y, tuple(y.placements))
+    return y
+
+
+def per_shard(fn, *xs):
+    """``fn(*xs)`` on each rank's local tensors, for an op that is local
+    along every dim the DTensors among ``xs`` shard (a pad or a write
+    along the sequence dim); each output takes the placements of the
+    argument at its position.  Without a DTensor, ``fn(*xs)``.  It keeps
+    DTensor's sharding rules out of ops some torch versions have none or a
+    faulty one for."""
+    if not is_dtensor(xs[0]):
+        return fn(*xs)
+    from torch.distributed.tensor.experimental import local_map
+
+    placements = tuple(tuple(x.placements) for x in xs)
+    return local_map(fn, out_placements=placements,
+                     in_placements=placements,
+                     device_mesh=xs[0].device_mesh)(*xs)
+
+
+def per_rows(fn, like, *args, summed=(), n_out=1):
+    """``fn(*args)`` on each rank's own rows: where ``like`` is a DTensor,
+    through ``local_map`` with every tensor argument and output laid out
+    along dim 0 as ``like`` is (``Shard(0)`` on the mesh dims it shards
+    dim 0 on, else ``Replicate()``); an argument whose index is in
+    ``summed`` enters whole and takes its gradient summed over the rows.
+    A plain tensor argument with ``like``'s dim 0 counts as replicated; any
+    other plain argument enters as it is.  Without a mesh, ``fn(*args)``.
+    For per-row work (MoE's group dispatch, the xLSTM recurrences) whose
+    ops DTensor has no rule, or a faulty one, for."""
+    if not is_dtensor(like):
+        return fn(*args)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = like.device_mesh
+    rows = tuple(Shard(0) if p == Shard(0) else Replicate()
+                 for p in like.placements)
+    whole = tuple(Replicate() for _ in rows)
+    partial = tuple(Partial() if p == Shard(0) else p for p in rows)
+    def batched(a):  # a plain tensor with like's dim 0
+        return (isinstance(a, torch.Tensor) and not is_dtensor(a)
+                and a.ndim > 0 and a.shape[0] == like.shape[0])
+
+    args = tuple(rewrap(a, mesh) if batched(a) else a for a in args)
+    ins = tuple(None if not is_dtensor(a) else whole if i in summed
+                else rows for i, a in enumerate(args))
+    grads = tuple(None if not is_dtensor(a) else partial if i in summed
+                  else rows for i, a in enumerate(args))
+    return local_map(fn, out_placements=(rows,) * n_out, in_placements=ins,
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
 
 
 def rewrap(x, mesh):

@@ -24,7 +24,8 @@ layer (32 x the stack's bytes per microbatch at stablelm-3b's depth).
 On a mesh (the caller installs ``sharding.axes.axis_rules(mesh)`` and
 lays the masters out as DTensors, e.g. by ``sharding_tree`` of
 ``params_axes()``), each microbatch is laid out as ``("batch", "seq")``
-from the replicated global batch (a local slice, no collective), and the
+from the replicated global batch (a local slice, no collective), or, where
+the batch arrives as DTensors, split from each rank's own rows; and the
 gradient accumulators are created in ``grad_shardings``' placements (the
 reference's FSDP layout of the f32 accumulator; default: each master's
 own).  A layer's alias then gets no ``.grad`` of its own: a hook takes
@@ -54,6 +55,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models.loops import counted_range
 from repro_torch.sharding.axes import is_dtensor
 
 from .optim import AdamWConfig, adamw_init, adamw_update, tree_leaves, tree_map
@@ -78,10 +80,29 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], n: int
     def split(x):
         b = x.shape[0]
         assert b % n == 0, (b, n)
+        if is_dtensor(x):
+            return _split_local(x, n)
         return x.reshape(n, b // n, *x.shape[1:])
 
     parts = {k: split(v) for k, v in batch.items()}
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _split_local(x, n: int) -> list:
+    """A batch DTensor laid out by its caller (the dry run's cells, as the
+    reference's ``in_shardings`` lay out its batch) split into ``n``
+    microbatch DTensors of the same placements: each rank splits its own
+    rows, so no rows move between ranks."""
+    from torch.distributed.tensor import DTensor
+
+    local = x.to_local()
+    parts = local.reshape(n, local.shape[0] // n, *local.shape[1:])
+    shape = (x.shape[0] // n,) + tuple(x.shape[1:])
+    return [DTensor.from_local(parts[i], x.device_mesh, x.placements,
+                               run_check=False, shape=shape,
+                               stride=torch.empty(shape,
+                                                  device="meta").stride())
+            for i in range(n)]
 
 
 def _alias(leaf: torch.Tensor, stacked: bool):
@@ -144,10 +165,18 @@ def _zeros_in(leaf: torch.Tensor, placements) -> torch.Tensor:
     where ``leaf`` is a DTensor, in ``placements`` (or ``leaf``'s own)."""
     if not is_dtensor(leaf):
         return torch.zeros_like(leaf)
-    from torch.distributed.tensor import zeros
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
 
-    return zeros(leaf.shape, dtype=leaf.dtype, device_mesh=leaf.device_mesh,
-                 placements=placements or leaf.placements)
+    # on the local tensor's device (``meta`` in a dry run), not the mesh's
+    mesh, placements = leaf.device_mesh, placements or leaf.placements
+    local, _ = compute_local_shape_and_global_offset(leaf.shape, mesh,
+                                                     placements)
+    zeros = torch.zeros(local, dtype=leaf.dtype,
+                        device=leaf.to_local().device)
+    return DTensor.from_local(zeros, mesh, placements, run_check=False,
+                              shape=leaf.shape, stride=leaf.stride())
 
 
 def bind_grads(params: Any, grad_shardings: Optional[Any] = None) -> Any:
@@ -188,7 +217,8 @@ def _lay_out(mb: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     for key, x in mb.items():
         names = ("batch", "seq")[:x.ndim] + (None,) * (x.ndim - 2)
         want = spec_to_placements(logical_to_spec(names, x.shape, mesh), mesh)
-        out[key] = rewrap(x, mesh).redistribute(mesh, want)
+        x = x if is_dtensor(x) else rewrap(x, mesh)
+        out[key] = x.redistribute(mesh, want)
     return out
 
 
@@ -215,7 +245,9 @@ def make_train_step(model, opt_cfg: AdamWConfig,
         n = cfg.num_microbatches
         live = bind_grads(params, grad_shardings)
         loss = torch.zeros((), dtype=torch.float32, device=device)
-        for mb in _split_microbatches(_to_device(batch, device), n):
+        mbs = _split_microbatches(_to_device(batch, device), n)
+        for i in counted_range(n, loss):
+            mb = mbs[i]
             used = (_cast_floating(live, cfg.dtype)
                     if FLAGS["bf16_weight_gather"] else live)
             mb_loss = model.loss(used, _lay_out(mb))
