@@ -19,7 +19,7 @@ Phases, each printing its own line; any failure exits non-zero:
    each kernel's bound (the least time the card could take for the same
    work): paged attention over bf16/f32 and over int8 pools at decode
    (the split-KV walk) and at a mixed step (the tensor-core tile; the f32
-   query's CUDA-core walk), also in the engine's own mixed layout (decode
+   query's f32 tile), also in the engine's own mixed layout (decode
    rows padded to the chunk bucket); the same decode and mixed shapes at
    gemma-7b's head dim 256 (KH 16, G 1) over bf16 and int8 pages and with
    an f32 query, and at starcoder2-3b's grouped heads (KH 2, G 12, D 128);
@@ -28,12 +28,15 @@ Phases, each printing its own line; any failure exits non-zero:
    B 4 T 1024 and B 1 T 4096, recurrentgemma-2b (MQA 10 / 1, D 256) at
    B 4 T 1024 and B 1 T 2048, whisper-small's encoder (12 heads of 64,
    non-causal, B 4 T 1500, held to limits from its own magnitudes, which
-   two planted faults of its ragged last tile must fail); the f32
-   CUDA-core walk at phase 7's f32 group shapes (mixtral-8x7b and
-   recurrentgemma-2b at B 2 T 64, whisper-small's encoder at B 2
-   T 1500).  The split-KV walk
-   and the tile are also held against the plain models of their own
-   algebra (``ref.paged_attention_split_ref``, ``paged_attention_tile_ref``).
+   two planted faults of its ragged last tile must fail); the f32 tile
+   (``csrc/attention_f32.cuh``) at phase 7's f32 group shapes
+   (mixtral-8x7b and recurrentgemma-2b at B 2 T 64, whisper-small's
+   encoder at B 2 T 1500).  The split-KV walk, the tile and the f32 tile
+   are also held against the plain models of their own algebra
+   (``ref.paged_attention_split_ref``, ``paged_attention_tile_ref``,
+   ``paged_attention_f32_tile_ref`` and ``flash_attention_f32_tile_ref``,
+   the last two within ``F32_MODEL_RTOL`` and ``F32_MODEL_FLOOR``), and
+   the f32 flash rows give the same bits on two calls.
    ``ms`` is the time per eager call (host launch cost included where it
    exceeds the device work), ``device_ms`` that of one CUDA-graph replay
    of the same calls (the device time of their kernels).
@@ -102,7 +105,7 @@ Phases, each printing its own line; any failure exits non-zero:
    drop-free capacity of the smoke configs), prefill of 64 tokens at B 2
    and two ``decode_step``s against ``forward`` within 2e-3, the flash
    routes of the run held to the table and every kernel launch on the
-   CUDA-core walk (deepseek
+   f32 tile (deepseek
    also: the prefill's latents copied into ``init_mla_pools`` pages of 16
    through permuted tables, 8 ``paged_mla_decode_step``s against
    ``decode_step`` within 2e-3); (b) in bf16 at the depth above, the
@@ -467,19 +470,45 @@ def tolerance(variant, dtype) -> tuple:
     return (2.0 ** -7, 1e-4) if variant == "split" else (2e-2, 2e-2)
 
 
+#: the f32 tile against the plain model of its order (``ref.*_f32_tile_ref``):
+#: elementwise rtol 1e-6, with an absolute floor of 1e-5 of the largest
+#: |output| for the outputs near zero (the two sum each product in another
+#: order: about 1e-7 of the output's scale over a long walk); a bf16 output
+#: one bf16 rounding step
+F32_MODEL_RTOL, F32_MODEL_FLOOR = 1e-6, 1e-5
+
+
+def f32_model_close(got, model, name) -> tuple:
+    """(within the f32 model limits, detail) of a kernel output against
+    the f32 tile's model."""
+    rtol = F32_MODEL_RTOL if got.dtype == torch.float32 else 2.0 ** -7
+    got, model = got.float(), model.float()
+    atol = F32_MODEL_FLOOR * model.abs().max().item()
+    err = (got - model).abs().max().item()
+    ok = torch.allclose(got, model, rtol=rtol, atol=atol)
+    return ok, (f", against {name} max_abs_err={err:.3e} (rtol {rtol:.3g} "
+                f"atol {atol:.3g})")
+
+
 def check_model(case, got, layer=0) -> tuple:
     """The kernel's output ``got`` over layer ``layer`` against the plain
     model of its variant's algebra: the split-KV walk within 1e-5 in f32
-    and one bf16 step in bf16, the tile within 2e-2.  Returns (ok, detail);
-    the CUDA-core walk has no model of its own (ok, "")."""
+    and one bf16 step in bf16, the tile within 2e-2, the f32 tile within
+    ``f32_model_close``.  Returns (ok, detail)."""
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels.ref import (paged_attention_split_ref,
+    from repro_torch.kernels.ref import (paged_attention_f32_tile_ref,
+                                         paged_attention_split_ref,
                                          paged_attention_tile_ref)
 
     variant = case_variant(case)
     kp, vp, ksc, vsc = _layer(case, layer)
     q, tables, qpos, live = (case["q"], case["tables"], case["qpos"],
                              case["live"])
+    if variant == "cuda_core":
+        model = paged_attention_f32_tile_ref(
+            q, kp, vp, tables, qpos, live, scale=case["scale"], k_scales=ksc,
+            v_scales=vsc)
+        return f32_model_close(got, model, "paged_attention_f32_tile_ref")
     if variant == "split":
         pps, nsplit = pa.split_plan(tables.shape[1], case["bs"],
                                     q.shape[-1])
@@ -488,13 +517,11 @@ def check_model(case, got, layer=0) -> tuple:
             n_splits=nsplit, scale=case["scale"], k_scales=ksc, v_scales=vsc)
         rtol, atol = ((1e-5, 1e-5) if q.dtype == torch.float32
                       else tolerance(variant, q.dtype))
-    elif variant == "tile":
+    else:
         model = paged_attention_tile_ref(q, kp, vp, tables, qpos, live,
                                          scale=case["scale"], k_scales=ksc,
                                          v_scales=vsc)
         rtol, atol = 2e-2, 2e-2
-    else:
-        return True, ""
     err = (got.float() - model.float()).abs().max().item()
     ok = torch.allclose(got.float(), model.float(), rtol=rtol, atol=atol)
     name = ("paged_attention_split_ref" if variant == "split"
@@ -729,8 +756,19 @@ def check_flash(b, t, h, kh, d, dtype, causal, gen, dev, tol, tag,
     name = (f"flash_attention {tag}: {str(dtype).split('.')[-1]} "
             f"{'causal' if causal else 'non-causal'} B={b} T={t} H={h} "
             f"KH={kh} D={d}")
-    phase(f"{name} vs plain", close and finite and got.shape == q.shape,
-          f"max_abs_err={err:.3e} ({limit}), finite={finite}")
+    model_ok, model_detail = True, ""
+    if fa.choose_variant(dtype, d) == "cuda_core":
+        from repro_torch.kernels.ref import flash_attention_f32_tile_ref
+
+        model_ok, model_detail = f32_model_close(
+            got, flash_attention_f32_tile_ref(q, k, v, causal=causal),
+            "flash_attention_f32_tile_ref")
+        same = torch.equal(got, fa.flash_attention(q, k, v, causal=causal))
+        model_ok = model_ok and same
+        model_detail += f", two calls the same bits {same}"
+    phase(f"{name} vs plain",
+          close and model_ok and finite and got.shape == q.shape,
+          f"max_abs_err={err:.3e} ({limit}){model_detail}, finite={finite}")
     if scaled:
         flash_tail_faults(q, k, v, want, name)
     del want
@@ -1031,7 +1069,7 @@ def serve_trace(cfg, params, dev, kv_dtype):
     # decode steps take the split-KV walk and its combine and nothing
     # else, mixed and prefill steps the tensor-core tile (a chunk of fewer
     # than 16 columns takes the split walk); each call launched the
-    # variant ``choose_variant`` gives its shapes, and no CUDA-core walk ran
+    # variant ``choose_variant`` gives its shapes, and no f32 tile ran
     kinds_ok = (set(by_kind) == {"decode", "mixed", "prefill"}
                 and set(by_kind["decode"]) == {"split"}
                 and _counts_ok(dict(by_kind=by_kind, launches=variants,
@@ -1381,7 +1419,7 @@ def serve_sharded(cfg, params, dev, prompts, new, *, workers,
 
 def _counts_ok(run, expect_kinds) -> bool:
     """The launch counts agree with the logged calls (a split launch is
-    one split and one combine), no CUDA-core walk ran, no call logged per
+    one split and one combine), no f32 tile ran, no call logged per
     call launched off its variant, and each plan kind in ``expect_kinds``
     called its variant: decode the split-KV walk, mixed and prefill the
     tile."""
@@ -1602,7 +1640,7 @@ def shard_tokens(dev) -> dict:
     shards, and on 1 shard again with the requests submitted in reverse
     order (the same requests in other batches and plan shapes: the control
     for what batch composition alone changes).  f32 queries take the f32
-    split and the CUDA-core walk, bf16 ones the bf16 split and the
+    split and the f32 tile, bf16 ones the bf16 split and the
     tensor-core tile (phase 4a's path).  Each run must complete at full
     length and drain; the greedy token matches are printed by type, with
     no floor."""
@@ -1674,8 +1712,8 @@ def frontend_full_width(cfg, params, dev, window) -> None:
     cancelled by disconnecting after two tokens, one DELETE-cancelled after
     its first; then the rolling drain.  Launch counts are zeroed just
     before the front end starts and read after the drain: decode plans
-    launch split + combine, the prompts' chunks the tile, no CUDA-core
-    walk, and the era scan runs."""
+    launch split + combine, the prompts' chunks the tile, no f32 tile,
+    and the era scan runs."""
     import asyncio
 
     from repro_torch.kernels import era_scan as es
@@ -2149,7 +2187,8 @@ def zoo_f32(arch, dev) -> int:
     E / k), since dropping depends on the co-batch.  For MLA, the prefill's
     latents are copied into pages and MLA_STEPS paged_mla_decode_steps run
     against decode_step on the same tokens.  Returns the flash kernel's
-    CUDA-core launches of the run (counts zeroed just before it)."""
+    ``cuda_core`` (f32 tile) launches of the run (counts zeroed just before
+    it)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import build_model, init_params
@@ -2420,7 +2459,7 @@ def zoo_bf16(arch, dev) -> dict:
 def zoo_phase(dev) -> dict:
     """Phase 7, one arch resident at a time: the f32 consistency run, then
     the bf16 run at ZOO_DEPTH.  Returns the bf16 runs' counts by arch,
-    with the f32 run's CUDA-core flash launches under ``f32_cuda_core``."""
+    with the f32 run's f32-tile flash launches under ``f32_cuda_core``."""
     out = {}
     for arch in ZOO_DEPTH:
         t0 = time.perf_counter()
@@ -3424,7 +3463,7 @@ def main() -> int:
     free_device_memory()
     # the other archs' shapes (phase 6 serves them): gemma-7b's head dim
     # 256 (KH 16, G 1) over bf16 and int8 pages, and an f32 query (the
-    # 64-key split-KV walk and the CUDA-core walk); the grouped heads at
+    # 64-key split-KV walk and the f32 tile); the grouped heads at
     # D 128 of starcoder2-3b (KH 2, G 12), starcoder2-7b (KH 4, G 9) and
     # pixtral-12b (KH 8, G 4)
     for b, c in ((8, 1), (9, 256)):
@@ -3469,7 +3508,7 @@ def main() -> int:
             4, 1500, 12, 12, 64, torch.bfloat16, False, gen, dev, None,
             "whisper-small encoder", scaled=True),
     }
-    # the CUDA-core walk at phase 7's f32 group shapes (B 2, prefill of 64
+    # the f32 tile at phase 7's f32 group shapes (B 2, prefill of 64
     # tokens; whisper's encoder over its 1500 frames)
     flash_f32 = {
         "mixtral-8x7b": check_flash(2, 64, 32, 8, 128, torch.float32, True,
@@ -3623,7 +3662,7 @@ def main() -> int:
                             **flash_src,
                             launches=zoo_launches(arch, t if at_window
                                                   else None), **row))
-    # the CUDA-core walk's rows: launches of phase 7's f32 group of the arch
+    # the f32 tile's rows: launches of phase 7's f32 group of the arch
     # (its forward, prefill and decode steps)
     for arch, row in flash_f32.items():
         case = ("whisper-small f32 group encoder B 2 T 1500, non-causal"

@@ -42,21 +42,26 @@
 //    merges each row's splits in split order (deterministic) and applies
 //    the max(l, 1e-30) guard.
 //
-// 3. CUDA-core walk (paged_chunk_kernel), the exact path: an f32 q with
-//    C*G >= 16, and every shape the other two do not take.  One block of 4
-//    warps per (16 query rows, kv head, request); each warp keeps 4 rows'
-//    q, running max, sum and f32 accumulator in registers, lanes splitting
-//    D (d = lane + 32k).  Each live slot's (bs, D) K and V are staged in
-//    shared memory as f32; a warp-wide butterfly sum gives each score, and
-//    masked tokens are skipped outright.  Bound on an H100: the f32 FMA
-//    rate (67 TFLOP/s) for a chunk; it stays as the exact reference.
+// 3. The f32 tile (paged_f32_kernel), the exact path: an f32 q with
+//    C*G >= 16, and every shape the other two do not take (fp16 or f32
+//    pages under a bf16 q, head dims the tensor-core tile is not built for,
+//    decode rows whose D does not divide by 16 or whose page is wider than a
+//    split).  The register-blocked FMA tile of attention_f32.cuh: 64 query
+//    rows a CTA (decode rows fill only its first warp's), K/V tiles of 32
+//    keys gathered key by key through the table into a two-stage cp.async
+//    ring, so bs does not bound shared memory; S and P V as f32 FMA
+//    micro-tiles, one online softmax rescale per key tile.  The walk bound is min(num_live[b] * bs, the deepest
+//    position any row of the CTA sees + 1): keys past it are zero-filled
+//    and never read, and the bounded and unbounded walks visit the same
+//    tiles.  Bound on an H100: the f32 FMA rate (67 TFLOP/s) for a chunk,
+//    4*D flops per visible pair.
 //
 // Storage types.  The query is f32 or bf16; the pools are f32, fp16, bf16
-// or int8.  In the split and CUDA-core variants every pool type becomes f32
+// or int8.  In the split and f32 variants every pool type becomes f32
 // as it is read, an int8 code as __fmul_rn(float(code), scale) with the
-// (block, kv head) scale read once per live slot through the same table
-// entry as the page (k_scales[tables[b, j] * KH + h]): the same rounding
-// as quant.dequantize_pool, so with an f32 q the fused kernel equals the
+// (block, kv head) scale read through the same table entry as the page
+// (k_scales[tables[b, j] * KH + h]): the same rounding as
+// quant.dequantize_pool, so with an f32 q the fused kernel equals the
 // kernel on materialized dequantized pools bitwise.  The tile variant folds
 // the scales instead (attention_tile.cuh).  A dead slot's scale is never
 // read in any variant.
@@ -69,31 +74,19 @@
 
 #include <type_traits>
 
+#include "attention_f32.cuh"
 #include "attention_tile.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
 constexpr float kNegInf = -1e30f;
 constexpr int kSplitKeys = 128;  // keys one split covers at most
 constexpr int kSplitRows = 15;   // C * G of the split variant
-constexpr int kMaxHeadDim = 256;
 constexpr size_t kMaxSmem = 227 * 1024;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f32(int8_t x) {
-  return static_cast<float>(x);
-}
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+using attn_f32::store_f32;
+using attn_f32::to_f32;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -117,138 +110,15 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// ------------------------------------------------------- 3. CUDA-core walk
-// q, out: (B, C, KH, G, D) of TQ; pools: (N, bs, KH, D) of TKV; scales:
-// (N, KH) f32, read for int8 pools only; tables: (B, nblk); qpos: (B, C);
-// live: (B,).  All contiguous.
-template <typename TQ, typename TKV, int DPL>
-__global__ void __launch_bounds__(kWarps * 32)
-paged_chunk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
-                   const TKV* __restrict__ v_pool,
-                   const float* __restrict__ k_scales,
-                   const float* __restrict__ v_scales,
-                   const int32_t* __restrict__ tables,
-                   const int32_t* __restrict__ qpos,
-                   const int32_t* __restrict__ live, TQ* __restrict__ out,
-                   int C, int KH, int G, int D, int bs, int nblk,
-                   float scale) {
-  constexpr bool kQuantized = std::is_same<TKV, int8_t>::value;
-  extern __shared__ float smem[];
-  float* ks = smem;            // (bs, D)
-  float* vs = smem + bs * D;   // (bs, D)
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int rows = C * G;
-  const int row0 = blockIdx.x * kRowsPerBlock;
-
-  // per-row state in registers
-  float qr[kRowsPerWarp][DPL];
-  float acc[kRowsPerWarp][DPL];
-  float m[kRowsPerWarp], l[kRowsPerWarp];
-  int pos[kRowsPerWarp];
-  size_t qoff[kRowsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = row0 + warp * kRowsPerWarp + i;
-    const bool ok = r < rows;
-    const int c = ok ? r / G : 0;
-    const int g = ok ? r % G : 0;
-    // a row outside the chunk gets position -1: every token is masked
-    pos[i] = ok ? qpos[(size_t)b * C + c] : -1;
-    qoff[i] = (((size_t)b * C + c) * KH + h) * (size_t)G * D + (size_t)g * D;
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int k = 0; k < DPL; ++k) {
-      const int d = lane + 32 * k;
-      qr[i][k] = (ok && d < D) ? to_f32(q[qoff[i] + d]) : 0.f;
-      acc[i][k] = 0.f;
-    }
-  }
-
-  // walk bound: the request's live slots, cut to the deepest block any row
-  // of this tile can see (the slots past it are fully masked for the tile)
-  int maxpos = -1;
-  for (int r = row0; r < min(row0 + kRowsPerBlock, rows); ++r)
-    maxpos = max(maxpos, qpos[(size_t)b * C + r / G]);
-  const int nlive = min(live[b], nblk);
-  const int jend = maxpos < 0 ? 0 : min(nlive, maxpos / bs + 1);
-
-  const int tile = bs * D;
-  for (int j = 0; j < jend; ++j) {
-    const size_t blk = (size_t)tables[(size_t)b * nblk + j];
-    __syncthreads();  // the previous tile is no longer read
-    if constexpr (kQuantized) {
-      const float ksc = k_scales[blk * KH + h];
-      const float vsc = v_scales[blk * KH + h];
-      for (int e = threadIdx.x; e < tile; e += blockDim.x) {
-        const int t = e / D, d = e - t * D;
-        const size_t src = ((blk * bs + t) * KH + h) * (size_t)D + d;
-        ks[e] = __fmul_rn(to_f32(k_pool[src]), ksc);
-        vs[e] = __fmul_rn(to_f32(v_pool[src]), vsc);
-      }
-    } else {
-      for (int e = threadIdx.x; e < tile; e += blockDim.x) {
-        const int t = e / D, d = e - t * D;
-        const size_t src = ((blk * bs + t) * KH + h) * (size_t)D + d;
-        ks[e] = to_f32(k_pool[src]);
-        vs[e] = to_f32(v_pool[src]);
-      }
-    }
-    __syncthreads();
-    const int base = j * bs;
-    for (int t = 0; t < bs; ++t) {
-      const float* kt = ks + t * D;
-      const float* vt = vs + t * D;
-      float kv[DPL], vv[DPL];
-#pragma unroll
-      for (int k = 0; k < DPL; ++k) {
-        const int d = lane + 32 * k;
-        kv[k] = d < D ? kt[d] : 0.f;
-        vv[k] = d < D ? vt[d] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        if (base + t > pos[i]) continue;  // causal mask (warp-uniform)
-        float s = 0.f;
-#pragma unroll
-        for (int k = 0; k < DPL; ++k) s = fmaf(qr[i][k], kv[k], s);
-        s = warp_sum(s) * scale;
-        const float mn = fmaxf(m[i], s);
-        const float corr = expf(m[i] - mn);
-        const float p = expf(s - mn);
-        l[i] = l[i] * corr + p;
-#pragma unroll
-        for (int k = 0; k < DPL; ++k) acc[i][k] = acc[i][k] * corr + p * vv[k];
-        m[i] = mn;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = row0 + warp * kRowsPerWarp + i;
-    if (r >= rows) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int k = 0; k < DPL; ++k) {
-      const int d = lane + 32 * k;
-      if (d < D) store_f32(out + qoff[i] + d, acc[i][k] * inv);
-    }
-  }
-}
-
-// ------------------------------------------------- 1. tensor-core tile
-// The tile's view of one (request, kv head): rows are the request's C*G
-// (position, group) pairs; key kp lives in table slot kp / bs, row kp % bs.
-template <typename TKV>
+// The tiles' view of one (request, kv head): rows are the request's C*G
+// (position, group) pairs of q, out (B, C, KH, G, D) of TQ; key kp lives in
+// table slot kp / bs, row kp % bs of the pools (N, bs, KH, D) of TKV.  Both
+// tiles take it.
+template <typename TQ, typename TKV>
 struct PagedSrc {
   using KV = TKV;
-  const __nv_bfloat16* q;
-  __nv_bfloat16* out;
+  const TQ* q;
+  TQ* out;
   const TKV* k_pool;
   const TKV* v_pool;
   const float* k_scales;
@@ -262,8 +132,8 @@ struct PagedSrc {
     return (((size_t)b * C + r / G) * KH + h) * (size_t)G * D +
            (size_t)(r % G) * D;
   }
-  __device__ const __nv_bfloat16* q_row(int r) const { return q + qoff(r); }
-  __device__ __nv_bfloat16* out_row(int r) const { return out + qoff(r); }
+  __device__ const TQ* q_row(int r) const { return q + qoff(r); }
+  __device__ TQ* out_row(int r) const { return out + qoff(r); }
   __device__ int pos(int r) const { return qpos[r / G]; }
   __device__ size_t page(int kp) const { return (size_t)table[kp / bs]; }
   __device__ size_t koff(int kp) const {
@@ -279,6 +149,23 @@ struct PagedSrc {
   }
 };
 
+// The deepest position any of the `n` rows from row0 sees (-1 for none);
+// every thread of the block (up to 8 warps, n <= its threads) calls it and
+// gets the same value.
+__device__ __forceinline__ int cta_max_pos(const int32_t* qpos, int row0,
+                                           int n, int rows, int G) {
+  __shared__ int wmax[8];
+  const int r = row0 + (int)threadIdx.x;
+  int p = ((int)threadIdx.x < n && r < rows) ? qpos[r / G] : -1;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) p = max(p, __shfl_xor_sync(0xffffffffu, p, o));
+  if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = p;
+  __syncthreads();
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) p = max(p, wmax[w]);
+  return p;
+}
+
+// ------------------------------------------------- 1. tensor-core tile
 template <int D, typename TKV>
 __global__ void __launch_bounds__(attn_tile::kThreads)
 paged_tile_kernel(const __nv_bfloat16* __restrict__ q,
@@ -292,27 +179,46 @@ paged_tile_kernel(const __nv_bfloat16* __restrict__ q,
                   __nv_bfloat16* __restrict__ out, int C, int KH, int G,
                   int bs, int nblk, float scale) {
   extern __shared__ int4 tile_smem[];
-  __shared__ int smax;
   const int b = blockIdx.z, h = blockIdx.y;
   const int rows = C * G;
   const int row0 = blockIdx.x * attn_tile::kRows;
   // walk bound: the live slots, cut to the deepest block any row sees
-  if (threadIdx.x == 0) smax = -1;
-  __syncthreads();
-  const int r = row0 + threadIdx.x;
-  int p = (threadIdx.x < attn_tile::kRows && r < rows)
-              ? qpos[(size_t)b * C + r / G] : -1;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) p = max(p, __shfl_xor_sync(0xffffffffu, p, o));
-  if ((threadIdx.x & 31) == 0) atomicMax(&smax, p);
-  __syncthreads();
-  const int maxpos = smax;
+  const int maxpos = cta_max_pos(qpos + (size_t)b * C, row0, attn_tile::kRows,
+                                 rows, G);
   const int jend = maxpos < 0 ? 0 : min(min(live[b], nblk), maxpos / bs + 1);
-  const PagedSrc<TKV> src{q, out, k_pool, v_pool, k_scales, v_scales,
-                          tables + (size_t)b * nblk, qpos + (size_t)b * C,
-                          k_pool, rows, C, KH, G, D, bs, b, h};
+  const PagedSrc<__nv_bfloat16, TKV> src{
+      q, out, k_pool, v_pool, k_scales, v_scales, tables + (size_t)b * nblk,
+      qpos + (size_t)b * C, k_pool, rows, C, KH, G, D, bs, b, h};
   attn_tile::run<D, std::is_same<TKV, int8_t>::value>(
       src, row0, jend * bs, scale, reinterpret_cast<char*>(tile_smem));
+}
+
+// ------------------------------------------------------------ 3. f32 tile
+template <int DP, int W, typename TQ, typename TKV>
+__global__ void __launch_bounds__(32 * attn_f32::full_warps<DP>(), attn_f32::min_blocks<DP>())
+paged_f32_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
+                 const TKV* __restrict__ v_pool,
+                 const float* __restrict__ k_scales,
+                 const float* __restrict__ v_scales,
+                 const int32_t* __restrict__ tables,
+                 const int32_t* __restrict__ qpos,
+                 const int32_t* __restrict__ live, TQ* __restrict__ out,
+                 int C, int KH, int G, int D, int bs, int nblk, float scale,
+                 int copy) {
+  extern __shared__ int4 f32_smem[];
+  constexpr int kRows = attn_f32::Shape<DP, W, TKV>::kRows;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int rows = C * G;
+  const int row0 = blockIdx.x * kRows;
+  // walk bound: the live slots' keys, cut to the deepest position a row sees
+  const int maxpos = cta_max_pos(qpos + (size_t)b * C, row0, kRows, rows, G);
+  const int kend =
+      maxpos < 0 ? 0 : max(0, min(min(live[b], nblk) * bs, maxpos + 1));
+  const PagedSrc<TQ, TKV> src{
+      q, out, k_pool, v_pool, k_scales, v_scales, tables + (size_t)b * nblk,
+      qpos + (size_t)b * C, k_pool, rows, C, KH, G, D, bs, b, h};
+  attn_f32::run<DP, W>(src, row0, kend, scale, copy,
+                       reinterpret_cast<char*>(f32_smem));
 }
 
 // ----------------------------------------------------- 2. split-KV decode
@@ -560,42 +466,48 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename TQ, typename TKV, int DPL>
-int launch(const Args& a) {
-  const int rows = a.C * a.G;
-  dim3 grid((rows + kRowsPerBlock - 1) / kRowsPerBlock, a.KH, a.B);
-  const size_t smem = 2 * (size_t)a.bs * a.D * sizeof(float);
-  auto kernel = paged_chunk_kernel<TQ, TKV, DPL>;
-  static const cudaError_t attr = allow_smem(kernel, kMaxSmem);
+template <int DP, int W, typename TQ, typename TKV>
+int launch_f32(const Args& a, int copy) {
+  using S = attn_f32::Shape<DP, W, TKV>;
+  auto kernel = paged_f32_kernel<DP, W, TQ, TKV>;
+  static const cudaError_t attr = allow_smem(kernel, S::kBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<grid, kWarps * 32, smem, a.stream>>>(
+  const int rows = a.C * a.G;
+  dim3 grid((rows + S::kRows - 1) / S::kRows, a.KH, a.B);
+  kernel<<<grid, S::kThreads, S::kBytes, a.stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), static_cast<const float*>(a.ksc),
       static_cast<const float*>(a.vsc), static_cast<const int32_t*>(a.tables),
       static_cast<const int32_t*>(a.qpos), static_cast<const int32_t*>(a.live),
-      static_cast<TQ*>(a.out), a.C, a.KH, a.G, a.D, a.bs, a.nblk, a.scale);
+      static_cast<TQ*>(a.out), a.C, a.KH, a.G, a.D, a.bs, a.nblk, a.scale,
+      copy);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DP, typename TQ, typename TKV>
+int f32_rows(const Args& a) {
+  return launch_f32<DP, attn_f32::full_warps<DP>(), TQ, TKV>(
+      a, attn_f32::copy_width(a.k, a.v, (size_t)a.D * sizeof(TKV)));
+}
+
 template <typename TQ, typename TKV>
-int by_head_dim(const Args& a) {
-  switch ((a.D + 31) / 32) {
-    case 1: return launch<TQ, TKV, 1>(a);
-    case 2: return launch<TQ, TKV, 2>(a);
-    case 3: return launch<TQ, TKV, 3>(a);
-    case 4: return launch<TQ, TKV, 4>(a);
-    case 5: case 6: case 7: case 8: return launch<TQ, TKV, 8>(a);
+int f32_by_head_dim(const Args& a) {
+  switch (attn_f32::padded_dim(a.D)) {
+    case 64: return f32_rows<64, TQ, TKV>(a);
+    case 80: return f32_rows<80, TQ, TKV>(a);
+    case 128: return f32_rows<128, TQ, TKV>(a);
+    case 256: return f32_rows<256, TQ, TKV>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename TQ>
-int by_pool_type(int kv_dtype, const Args& a) {
+int f32_by_pool_type(int kv_dtype, const Args& a) {
   switch (kv_dtype) {
-    case 0: return by_head_dim<TQ, float>(a);
-    case 1: return by_head_dim<TQ, __nv_bfloat16>(a);
-    case 2: return by_head_dim<TQ, __half>(a);
-    case 3: return by_head_dim<TQ, int8_t>(a);
+    case 0: return f32_by_head_dim<TQ, float>(a);
+    case 1: return f32_by_head_dim<TQ, __nv_bfloat16>(a);
+    case 2: return f32_by_head_dim<TQ, __half>(a);
+    case 3: return f32_by_head_dim<TQ, int8_t>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -697,7 +609,7 @@ Args make_args(const void* q, const void* k, const void* v,
 // 0 or 1; kv_dtype any of the four, and 3 needs k_scales / v_scales.  Each
 // entry point returns the cudaError_t of its launches.
 
-// The CUDA-core walk (variant 3).
+// The f32 tile (variant 3): D <= 256, any bs.
 extern "C" int paged_attention_chunk(int q_dtype, int kv_dtype, const void* q,
                                      const void* k, const void* v,
                                      const void* k_scales,
@@ -710,10 +622,10 @@ extern "C" int paged_attention_chunk(int q_dtype, int kv_dtype, const void* q,
                            out, B, C, KH, G, D, bs, nblk, scale, stream);
   if (kv_dtype == 3 && (k_scales == nullptr || v_scales == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (2 * (size_t)bs * D * sizeof(float) > kMaxSmem || D > kMaxHeadDim)
+  if (D < 1 || attn_f32::padded_dim(D) == 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (q_dtype == 0) return by_pool_type<float>(kv_dtype, a);
-  if (q_dtype == 1) return by_pool_type<__nv_bfloat16>(kv_dtype, a);
+  if (q_dtype == 0) return f32_by_pool_type<float>(kv_dtype, a);
+  if (q_dtype == 1) return f32_by_pool_type<__nv_bfloat16>(kv_dtype, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -747,7 +659,7 @@ extern "C" int paged_attention_split(
     int nblk, int pps, int nsplit, float scale, void* stream) {
   const Args a = make_args(q, k, v, k_scales, v_scales, tables, qpos, live,
                            out, B, C, KH, G, D, bs, nblk, scale, stream);
-  if (C * G > kSplitRows || D % 16 != 0 || D > kMaxHeadDim || pps < 1 ||
+  if (C * G > kSplitRows || D % 16 != 0 || D > attn_f32::kMaxDim || pps < 1 ||
       pps * bs > kSplitKeys || (long long)pps * nsplit < nblk)
     return static_cast<int>(cudaErrorInvalidValue);
   if (kv_dtype == 3 && (k_scales == nullptr || v_scales == nullptr))

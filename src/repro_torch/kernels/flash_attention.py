@@ -9,8 +9,11 @@ tiles and takes any T.  ``csrc/flash_attention.cu`` holds two variants
 (design and what bounds each on an H100 are in its header), and
 :func:`choose_variant` picks one: ``"tile"``, the tensor-core tile of
 ``csrc/attention_tile.cuh`` for bf16 at D 64, 80, 128 or 256, or
-``"cuda_core"``, the exact f32 walk (and bf16 at any other D).  Its plain
-PyTorch version is ``flash_attention_ref``.
+``"cuda_core"``, the exact f32 tile of ``csrc/attention_f32.cuh``
+(register-blocked FMA products on the CUDA cores; f32, and bf16 at any
+other D).  Its plain PyTorch version is ``flash_attention_ref``, and
+``ref.flash_attention_f32_tile_ref`` models the f32 tile's order of
+operations.
 
 The TPU kernel has no backward (the reference differentiates its jnp
 chunked attention); the port's gradient is ``csrc/flash_attention_bwd.cu``
@@ -59,7 +62,7 @@ TILE_HEAD_DIMS = (64, 80, 128, 256)
 
 #: launches of the kernel (``LAUNCHES.n``), bumped once per call
 LAUNCHES = build.Counter()
-#: launches per variant: ``tile`` and ``cuda_core``
+#: launches per variant: ``tile`` and ``cuda_core`` (the f32 tile)
 VARIANT_LAUNCHES = {name: build.Counter() for name in ("tile", "cuda_core")}
 #: launches of the backward (``BWD_LAUNCHES.n``), bumped once per call
 #: (its kernels, ``csrc/flash_attention_bwd.cu``, launch together)

@@ -15,12 +15,16 @@ the query and pool types, the C*G query rows per kv head, D and bs:
 - ``"split"``: the split-KV walk and its combine, for C*G < 16 (decode);
 - ``"tile"``: the tensor-core tile of ``csrc/attention_tile.cuh``, for a
   bf16 query over bf16 or int8 pages (prefill and mixed chunks);
-- ``"cuda_core"``: the CUDA-core walk, the exact path (an f32 query's
-  chunks, and the shapes the other two do not take).
+- ``"cuda_core"``: the f32 tile of ``csrc/attention_f32.cuh``
+  (register-blocked FMA products on the CUDA cores), the exact path (an
+  f32 query's chunks, and the shapes the other two do not take).
 
 This module checks the operands and launches the chosen variant on the
 current CUDA stream.  Its plain PyTorch versions are
-``paged_attention_chunk_ref`` and ``paged_attention_chunk_int8_ref``.
+``paged_attention_chunk_ref`` and ``paged_attention_chunk_int8_ref``; the
+plain models of each variant's own order of operations are
+``paged_attention_split_ref``, ``paged_attention_tile_ref`` and
+``paged_attention_f32_tile_ref``.
 
 The wrappers here take CUDA tensors only; ``ops`` selects between them
 and the plain version by the tensor's device.
@@ -51,8 +55,8 @@ _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
               torch.int8: 3}
 MAX_HEAD_DIM = 256
-#: shared memory a block may use on an H100 (227 KB); the CUDA-core walk
-#: stages one f32 (bs, D) K and V tile, 8 * bs * D bytes
+#: shared memory a block may use on an H100 (227 KB), which sizes the
+#: split-KV walk's splits
 MAX_SMEM_BYTES = 227 * 1024
 #: head dims the tensor-core tile is instantiated for (multiples of 16)
 TILE_HEAD_DIMS = (64, 80, 128, 256)
@@ -67,7 +71,7 @@ LAUNCHES = build.Counter()
 #: launches over int8 pools, the port of ``_paged_chunk_kernel_q8``
 LAUNCHES_Q8 = build.Counter()
 #: launches per kernel variant, whatever the pools: ``tile``, ``split``
-#: and its ``combine``, and the CUDA-core walk ``cuda_core``
+#: and its ``combine``, and the f32 tile ``cuda_core``
 VARIANT_LAUNCHES = {name: build.Counter()
                     for name in ("tile", "split", "combine", "cuda_core")}
 
@@ -119,15 +123,12 @@ def split_plan(nblk: int, bs: int, d: int) -> tuple:
     return pps, max(1, -(-nblk // pps))
 
 
-def _check_limits(variant: str, d: int, bs: int) -> None:
-    """The chosen variant's own limits (the split and tile variants'
-    shapes are guaranteed by ``choose_variant``)."""
+def _check_limits(d: int) -> None:
+    """The kernels' one shape limit, D <= 256 (the split and tile
+    variants' other shapes are guaranteed by ``choose_variant``; the f32
+    tile gathers keys one by one, so bs does not bound it)."""
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} exceeds the kernels' {MAX_HEAD_DIM}")
-    if variant == "cuda_core" and 8 * bs * d > MAX_SMEM_BYTES:
-        raise ValueError(f"block_size {bs} x head_dim {d} exceeds the "
-                         f"CUDA-core kernel's shared memory (8*bs*D <= "
-                         f"{MAX_SMEM_BYTES})")
 
 
 def _check(name: str, t: torch.Tensor, ndim: int, dtype=None) -> None:
@@ -177,7 +178,7 @@ def paged_attention_chunk(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"pool shape {tuple(k_pool.shape)} does not match "
                          f"q {tuple(q.shape)}")
     variant = choose_variant(q.dtype, k_pool.dtype, c * g, d, bs)
-    _check_limits(variant, d, bs)
+    _check_limits(d)
     _check("tables", tables, 2, torch.int32)
     _check("q_positions", q_positions, 2, torch.int32)
     nblk = tables.shape[1]

@@ -314,8 +314,114 @@ def paged_attention_tile_ref(q, k_pool, v_pool, tables, q_positions,
     return o.permute(0, 2, 1, 3, 4).to(q.dtype).contiguous()
 
 
-# ------------------------------------------------------------ flash attention
+# ------------------------------------------- the f32 tile's order (both kernels)
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+
+
+#: keys a K/V tile of the f32 tile walks, at every D (``kKeys`` of
+#: ``csrc/attention_f32.cuh``)
+F32_TILE_KEYS = 32
+
+
+def _f32_tile_walk(rows, k, v, pos, kend, scale):
+    """The f32 tile's order of operations.  rows (B, KH, R, D) f32; k, v
+    (B, KH, S, D) f32, zero at and past each request's ``kend`` (B,); pos
+    (B, R) each row's position (keys <= pos are seen; -1 sees none).  Keys
+    go in tiles of ``F32_TILE_KEYS``: S = (rows K^T) * (scale * log2 e)
+    in f32, masked by select, the row max over the tile, corr = 2^(m_old -
+    m_new) applied once to l and O, P = 2^(S - m_new), l += sum P, O += P V.
+    Returns out = O * (1 / max(l, 1e-30)) (B, KH, R, D) and the
+    log-sum-exp (m + log2 l) ln 2 (B, KH, R), both f32."""
+    b, kh, r, d = rows.shape
+    dev = rows.device
+    sl = (torch.tensor(scale, dtype=torch.float32)
+          * torch.tensor(LOG2E, dtype=torch.float32)).to(dev)
+    m = torch.full((b, kh, r), NEG_INF, device=dev)
+    l = torch.zeros((b, kh, r), device=dev)
+    o = torch.zeros((b, kh, r, d), device=dev)
+    keys = F32_TILE_KEYS
+    for k0 in range(0, k.shape[2], keys):
+        kt, vt = k[:, :, k0:k0 + keys], v[:, :, k0:k0 + keys]
+        kp = torch.arange(k0, k0 + kt.shape[2], device=dev)
+        vis = ((kp[None, None, :] <= pos[:, :, None])
+               & (kp[None, None, :] < kend[:, None, None]))       # (B, R, n)
+        s = torch.where(vis[:, None], torch.matmul(rows, kt.transpose(2, 3))
+                        * sl, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * corr + p.sum(dim=-1)
+        o = o * corr[..., None] + torch.matmul(p, vt)
+        m = m_new
+    lc = torch.clamp(l, min=1e-30)
+    return o * (1.0 / lc)[..., None], (m + torch.log2(lc)) * LN2
+
+
+def paged_attention_f32_tile_ref(q, k_pool, v_pool, tables, q_positions,
+                                 num_live_blocks=None, *, scale=None,
+                                 k_scales=None, v_scales=None):
+    """The f32 tile's algebra over paged K/V (the ``cuda_core`` variant of
+    ``csrc/paged_attention.cu``): q and every pool type read as f32, int8
+    pages as ``code * scale`` in f32 (``quant.dequantize_pool``'s
+    rounding), and the tiles of :func:`_f32_tile_walk` over each request's
+    keys [0, min(live * bs, last position + 1)); keys past that bound are
+    never read.  Returns (B, C, KH, G, D) in q's dtype."""
+    check_scales(k_pool, k_scales, v_scales)
+    b, c, kh, g, d = q.shape
+    bs = k_pool.shape[1]
+    nblk = tables.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    last = q_positions.long().max(dim=1).values
+    live = (torch.full_like(last, nblk) if num_live_blocks is None
+            else torch.clamp(num_live_blocks.long(), 0, nblk))
+    kend = torch.where(last >= 0, torch.minimum(live * bs, last + 1), 0)
+    w = -(-int(kend.max()) // bs) if b else 0
+    if w == 0:
+        return torch.zeros_like(q)
+    ids = tables.long()[:, :w]
+    key_ok = (torch.arange(w * bs, device=q.device)[None, :]
+              < kend[:, None])                                   # (B, S)
+
+    def pages(pool, scales):
+        x = _gather_pages(pool, scales, ids).reshape(b, w * bs, kh, d)
+        return torch.where(key_ok[:, :, None, None], x, 0.0).transpose(1, 2)
+
+    rows, pos = _rows(q, q_positions)
+    out, _ = _f32_tile_walk(rows, pages(k_pool, k_scales),
+                            pages(v_pool, v_scales), pos, kend, scale)
+    out = out.reshape(b, kh, c, g, d).permute(0, 2, 1, 3, 4)
+    return out.to(q.dtype).contiguous()
+
+
+def flash_attention_f32_tile_ref(q, k, v, *, causal: bool = True,
+                                 with_lse: bool = False):
+    """The f32 tile's algebra over dense K/V (the ``cuda_core`` variant of
+    ``csrc/flash_attention.cu``): q (B, T, H, D), k/v (B, T, KH, D) read as
+    f32, rows (position, group) pairs at position t (T - 1 when not
+    causal), the tiles of :func:`_f32_tile_walk`.  Returns (B, T, H, D) in
+    q's dtype, and with ``with_lse`` also the f32 (B, H, T) log-sum-exp."""
+    b, t, h, d = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    rows = q.float().reshape(b, t, kh, g, d).permute(0, 2, 1, 3, 4).reshape(
+        b, kh, t * g, d)
+    pos = (torch.arange(t, device=q.device).repeat_interleave(g) if causal
+           else torch.full((t * g,), t - 1, device=q.device))
+    out, lse = _f32_tile_walk(rows, k.float().transpose(1, 2),
+                              v.float().transpose(1, 2),
+                              pos[None].expand(b, t * g),
+                              torch.full((b,), t, device=q.device), 1.0
+                              / math.sqrt(d))
+    out = out.reshape(b, kh, t, g, d).permute(0, 2, 1, 3, 4).reshape(
+        b, t, h, d).to(q.dtype)
+    if not with_lse:
+        return out
+    return out, lse.reshape(b, kh, t, g).transpose(2, 3).reshape(b, h, t)
+
+
+# ------------------------------------------------------------ flash attention
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -133,12 +133,13 @@ def test_split_plan_keys(nblk, bs, d, want):
 
 
 def test_cuda_core_limit_raises():
-    with pytest.raises(ValueError, match="shared memory"):
-        pa._check_limits("cuda_core", 128, 256)
+    """The f32 tile's one limit is D <= 256: it gathers keys one by one
+    into its K/V tiles, so a page of any size is taken."""
     with pytest.raises(ValueError, match="head_dim"):
-        pa._check_limits("tile", 272, 16)
-    pa._check_limits("cuda_core", 80, 16)
-    pa._check_limits("cuda_core", 256, 16)  # gemma-7b, 32 KB of staging
+        pa._check_limits(272)
+    for d, bs in ((128, 256), (80, 16), (256, 16), (256, 128), (72, 512)):
+        assert pa.choose_variant(F32, F32, 256, d, bs) == "cuda_core"
+        pa._check_limits(d)
 
 
 # ============================================== shared seeded inputs

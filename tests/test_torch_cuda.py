@@ -15,9 +15,14 @@ reservation form (points, intervals, EBR's open form, empty slots), both
 row tiles (reached by R) and boundary era, through the kernel and through the ``cuda``
 backend's pinned round trip (also from four threads at once), and on each
 pool scheme's own mirrors.  Every variant of the paged
-kernel (``choose_variant``: split-KV walk, tensor-core tile, CUDA-core
-walk) is swept over C, G, D and bs, and the split-KV walk and the tile
-are also held against the plain models of their own algebra in ``ref``.
+kernel (``choose_variant``: split-KV walk, tensor-core tile, f32 tile) is
+swept over C, G, D and bs, and each is also held against the plain model
+of its own algebra in ``ref``.  The f32 tile (``cuda_core`` in both
+kernels) is held to its model within rtol 1e-6 plus 1e-5 of the largest
+|output| (one bf16 step for a bf16 output) over every route the variant
+tables send it, two calls give the same bits, and its K/V copies in 16
+bytes, 4 bytes or element by element (row sizes that divide no further)
+are each reached.
 The split-KV walk keeps scores, P and partials in f32, so its bf16 output
 is held to one bf16 rounding step (rtol 2**-7) and, in f32, to its model
 within 1e-5.  Head dim 256 (gemma-7b) is swept in every variant over every
@@ -37,9 +42,11 @@ from repro_torch.core.era_table import _can_delete_numpy, batched_can_delete
 from repro_torch.kernels import era_scan, flash_attention, paged_attention
 from repro_torch.kernels.quant import dequantize_pool
 from repro_torch.kernels.ref import (INF_ERA32, era_scan_interval_ref,
+                                     flash_attention_f32_tile_ref,
                                      flash_attention_ref,
                                      paged_attention_chunk_int8_ref,
                                      paged_attention_chunk_ref,
+                                     paged_attention_f32_tile_ref,
                                      paged_attention_ref,
                                      paged_attention_split_ref,
                                      paged_attention_tile_ref)
@@ -287,12 +294,27 @@ def _tolerance(variant, dtype):
     return (2.0 ** -7, 1e-4) if variant == "split" else (2e-2, 2e-2)
 
 
+def _f32_model_close(got, model):
+    """The f32 tile against its model: rtol 1e-6 (one bf16 step for a bf16
+    output), and 1e-5 of the largest |output| for outputs near zero (the
+    two sum each product in another order)."""
+    rtol = 1e-6 if got.dtype == torch.float32 else 2.0 ** -7
+    model = model.float()
+    torch.testing.assert_close(got.float(), model, rtol=rtol,
+                               atol=1e-5 * model.abs().max().item())
+
+
 def _check_model(args, variant, nblk):
     """The split-KV walk against ``paged_attention_split_ref`` (within
     1e-5 in f32, one bf16 step in bf16), the tile against
-    ``paged_attention_tile_ref`` (2e-2)."""
+    ``paged_attention_tile_ref`` (2e-2), the f32 tile against
+    ``paged_attention_f32_tile_ref`` (``_f32_model_close``)."""
     q, k, v, tables, qpos, live, ksc, vsc = args
     got = paged_attention.paged_attention_chunk(*args)
+    if variant == "cuda_core":
+        _f32_model_close(got, paged_attention_f32_tile_ref(
+            q, k, v, tables, qpos, live, k_scales=ksc, v_scales=vsc))
+        return
     if variant == "split":
         pps, nsplit = paged_attention.split_plan(
             nblk, k.shape[1], q.shape[-1])
@@ -310,9 +332,9 @@ def _check_model(args, variant, nblk):
 
 
 def _check_variant(args, variant, nblk, dev):
-    """Against plain; against the model of its algebra (split-KV walk and
-    tile); bounded == unbounded bitwise; NaN-poisoned dead pages and
-    scales unread; the variant's counter bumped once."""
+    """Against plain; against the model of its variant's algebra; bounded
+    == unbounded bitwise; NaN-poisoned dead pages and scales unread; the
+    variant's counter bumped once."""
     q, k, v, tables, qpos, live, ksc, vsc = args
     rtol, atol = _tolerance(variant, q.dtype)
     ctr = paged_attention.VARIANT_LAUNCHES[variant]
@@ -324,8 +346,7 @@ def _check_variant(args, variant, nblk, dev):
                                      k_scales=ksc, v_scales=vsc)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
-    if variant in ("split", "tile"):
-        _check_model(args, variant, nblk)
+    _check_model(args, variant, nblk)
     full = torch.full_like(live, nblk)
     assert torch.equal(got, paged_attention.paged_attention_chunk(
         q, k, v, tables, qpos, full, ksc, vsc))
@@ -434,6 +455,113 @@ def test_split_decode_of_a_wide_table_equals_narrow(dev):
     a = paged_attention.paged_attention_chunk(q, k, v, tables, qpos, live)
     b = paged_attention.paged_attention_chunk(q, k, v, wide, qpos, live)
     torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------------------- the f32 tile, every route
+# (q, pool, B, C, KH, G, D, bs, nblk): each shape ``choose_variant`` sends
+# to ``cuda_core``
+F32_TILE_ROUTES = [
+    ("bf16", "bf16", 2, 20, 2, 1, 72, 16, 6),    # D 72: no tensor-core tile
+    ("bf16", "bf16", 2, 20, 2, 1, 96, 16, 6),    # D 96
+    ("bf16", "int8", 2, 20, 2, 2, 72, 16, 6),    # int8 rows of 72 bytes
+    ("bf16", "f16", 2, 40, 4, 1, 80, 16, 8),     # fp16 pages under bf16
+    ("bf16", "f32", 2, 40, 4, 1, 80, 16, 8),     # f32 pages under bf16
+    ("bf16", "bf16", 2, 1, 4, 1, 80, 256, 3),    # a page of 256 keys
+    ("f32", "f32", 2, 1, 4, 1, 256, 128, 4),     # a page of 128 at D 256
+    ("bf16", "bf16", 3, 1, 2, 4, 72, 16, 8),     # rows < 16 at D 72
+    ("bf16", "bf16", 2, 3, 2, 1, 33, 8, 6),      # 66-byte rows: by element
+    ("f32", "f32", 2, 3, 2, 1, 33, 8, 6),        # 132-byte rows: 4 bytes
+    ("f32", "f32", 2, 40, 4, 1, 80, 16, 8),      # f32 chunk
+    ("f32", "int8", 2, 40, 4, 1, 80, 16, 8),     # int8 pages under f32
+    ("f32", "bf16", 2, 40, 2, 4, 128, 16, 8),    # GQA G 4, D 128
+    ("f32", "f32", 2, 256, 2, 1, 256, 16, 20),   # gemma-7b chunk width
+    ("f32", "f16", 9, 256, 4, 1, 80, 16, 24),    # 144 CTAs: 64 rows a CTA
+]
+
+
+@pytest.mark.parametrize("qd,pool,b,c,kh,g,d,bs,nblk", F32_TILE_ROUTES)
+def test_f32_tile_routes(dev, qd, pool, b, c, kh, g, d, bs, nblk):
+    """Against plain (1e-4 f32, 2e-2 bf16) and the f32 model; two calls
+    the same bits; bounded == unbounded; dead pages and scales unread."""
+    qdt = torch.float32 if qd == "f32" else torch.bfloat16
+    q, k, v, tables, qpos, live = _case(b, c, kh, g, d, bs, nblk, qdt, dev,
+                                        seed=b * c + d + bs)
+    ksc = vsc = None
+    if pool == "int8":
+        k, v, ksc, vsc = _int8_pools(k, v, dev, seed=d + bs)
+    else:
+        kvdt = {"bf16": torch.bfloat16, "f16": torch.float16,
+                "f32": torch.float32}[pool]
+        k, v = k.to(kvdt), v.to(kvdt)
+    assert paged_attention.choose_variant(qdt, k.dtype, c * g, d, bs) == \
+        "cuda_core"
+    args = (q, k, v, tables, qpos, live, ksc, vsc)
+    _check_variant(args, "cuda_core", nblk, dev)
+    got = paged_attention.paged_attention_chunk(*args)
+    assert torch.equal(got, paged_attention.paged_attention_chunk(*args))
+
+
+@pytest.mark.parametrize("b,c,kh,g,d,bs,nblk", [
+    (2, 40, 4, 1, 80, 16, 8), (2, 20, 2, 2, 72, 16, 6),
+    (9, 256, 2, 1, 256, 16, 20), (2, 1, 4, 1, 80, 256, 3)])
+def test_f32_tile_int8_fused_equals_dequantized(dev, b, c, kh, g, d, bs,
+                                                nblk):
+    """Under an f32 query the f32 tile widens a code as __fmul_rn(code,
+    scale), ``dequantize_pool``'s rounding: fused int8 equals the f32
+    pools bitwise, through the 16-byte and the 4-byte copies."""
+    q, k, v, tables, qpos, live = _case(b, c, kh, g, d, bs, nblk,
+                                        torch.float32, dev, seed=b + c + d)
+    kq, vq, ksc, vsc = _int8_pools(k, v, dev, seed=bs + d)
+    assert paged_attention.choose_variant(torch.float32, torch.int8, c * g,
+                                          d, bs) == "cuda_core"
+    fused = paged_attention.paged_attention_chunk(q, kq, vq, tables, qpos,
+                                                  live, ksc, vsc)
+    mat = paged_attention.paged_attention_chunk(
+        q, dequantize_pool(kq, ksc), dequantize_pool(vq, vsc), tables, qpos,
+        live)
+    assert torch.equal(fused, mat)
+
+
+# (B, T, H, KH, D, causal)
+F32_FLASH_ROUTES = [
+    (2, 1500, 12, 12, 64, False),   # whisper-small's encoder, f32 group
+    (2, 64, 32, 8, 128, True),      # mixtral-8x7b's f32 group: 16-row CTAs
+    (2, 64, 10, 1, 256, True),      # recurrentgemma-2b's f32 group
+    (1, 300, 32, 32, 80, True),     # stablelm-3b heads, ragged T
+    (2, 130, 8, 2, 256, False),     # D 256, GQA, non-causal, ragged
+    (1, 77, 4, 2, 33, True),        # odd D: 4-byte copies
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,kh,d,causal", F32_FLASH_ROUTES + [
+    (1, 200, 8, 2, 96, True), (2, 100, 4, 4, 32, False)])
+def test_f32_tile_flash(dev, dtype, b, t, h, kh, d, causal):
+    """The flash kernel's f32 tile (f32 at every D; bf16 where the
+    tensor-core tile is not built) against plain and its model, the
+    log-sum-exp the backward reads against the model's, two calls the same
+    bits."""
+    if flash_attention.choose_variant(dtype, d) != "cuda_core":
+        pytest.skip("the tensor-core tile's route")
+    rng = np.random.default_rng(t + h + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dev).to(dtype)
+               for s in ((b, t, h, d), (b, t, kh, d), (b, t, kh, d)))
+    ctr = flash_attention.VARIANT_LAUNCHES["cuda_core"]
+    n0 = ctr.n
+    out, lse = flash_attention._forward(q, k, v, causal, with_lse=True)
+    torch.cuda.synchronize()
+    assert ctr.n == n0 + 1
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(
+        out.float(), flash_attention_ref(q, k, v, causal=causal).float(),
+        rtol=tol, atol=tol)
+    want, want_lse = flash_attention_f32_tile_ref(q, k, v, causal=causal,
+                                                  with_lse=True)
+    _f32_model_close(out, want)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-6, atol=1e-5)
+    assert torch.equal(out, flash_attention.flash_attention(q, k, v,
+                                                            causal=causal))
 
 
 @pytest.mark.parametrize("b,t,h,kh,d", [
