@@ -130,18 +130,25 @@ Phases, each printing its own line; any failure exits non-zero:
    dV; the ragged last key tile skipped) must fail; the forward the same
    bits with and without its log-sum-exp output; timed beside SDPA's
    backward and its bound.  At each bf16 shape both variants are held and
-   timed in the same run: the tensor-core tile (the route) and the
-   CUDA-core walk (forced), each two calls the same bits; at starcoder2-3b
-   also the tile without its GQA split.  (b) stablelm-3b at full width, 2
-   layers, f32: one ``make_train_step`` step on the card against the same
-   step on the CPU, and with 1 and 2 microbatches, every backward call on
-   the CUDA-core walk.  (c) The slice: full-width,
+   timed in the same run: the tensor-core tile (the route) and the f32
+   tile on the widened inputs (forced), each two calls the same bits; at
+   starcoder2-3b also the tile without its GQA split.  The f32 rows
+   (stablelm-3b, starcoder2-3b, gemma-7b, whisper's encoder) take the f32
+   tile, each two calls the same bits, held to the f32 limits that the
+   two planted faults must fail; at 8b's short grid and two more the f32
+   tile's 64-row and one-warp CTAs give the same bits.  (b) stablelm-3b
+   at full width, 2 layers, f32: one ``make_train_step`` step on the card
+   against the same step on the CPU, and with 1 and 2 microbatches, every
+   backward call on the f32 tile; (b') the same 2 layers trained on the
+   card alone at B 1 x S 2048 (ms a step, the backward's share of device
+   time in one profiled step, every backward launch on the f32 tile).
+   (c) The slice: full-width,
    full-depth stablelm-3b in bf16 with f32 master weights and AdamW
    states, remat on, global batch 8 x 2048 in 8 microbatches, 6 steps from
    ``PrefetchingLoader(SyntheticLMData)``: finite losses and grad norms,
    every attention call on the kernel route (32 layers x 8 microbatches x
    2 a step, remat recomputing) and 32 x 8 backward launches a step, all
-   on the tensor-core tile and none on the walk, the prefetcher drained
+   on the tensor-core tile and none on the f32 tile, the prefetcher drained
    after ``close``; ms/step, tokens/s, peak memory and
    the share of 6 N D at the bf16 peak printed; then one more step under
    torch.profiler: device time by kind and the idle share.  (d) The
@@ -2541,10 +2548,10 @@ def check_flash_bwd(b, t, h, kh, d, dtype, causal, gen, dev, tag,
     SDPA's backward on the same tensors and its bound: 10 D flops per
     visible (query, key) pair and head at the input type's peak, or q, k,
     v, o, dO, lse and the three gradients once over HBM.  Where the route
-    takes the tensor-core tile (bf16), the CUDA-core walk is forced through
-    ``flash_attention_bwd``'s ``variant`` on the same inputs, held to the
-    same limits and timed in the same run (at a GQA split, the tile also
-    unsplit).  Also: the forward's output the same bits with and without
+    takes the tensor-core tile (bf16), the f32 tile (``cuda_core``) is
+    forced through ``flash_attention_bwd``'s ``variant`` on the same
+    inputs (widened in shared memory), held to the same limits and timed
+    in the same run (at a GQA split, the tile also unsplit).  Also: the forward's output the same bits with and without
     the log-sum-exp, the log-sum-exp against the plain one, two calls of
     each variant the same bits.  ``faults``: planted faults of
     ``_bwd_plain`` that must fail the limits.  Returns a row per variant."""
@@ -2658,28 +2665,65 @@ def check_flash_bwd(b, t, h, kh, d, dtype, causal, gen, dev, tag,
     return rows
 
 
+def check_f32_bwd_ctas(gen, dev) -> None:
+    """The f32 tile's 64-row and one-warp CTAs give the same bits (the
+    grid picks one by how it fills the card): at 8b's short grid (B 2 T 64
+    H 32 D 80), at starcoder2-3b's G 12 over a short T (its GQA split) and
+    at D 256 non-causal.  These comparison launches do not count."""
+    from repro_torch.kernels import flash_attention as fa
+
+    saved = _save_counts()
+    for b, t, h, kh, d, causal in ((2, 64, 32, 32, 80, True),
+                                   (1, 300, 24, 2, 128, True),
+                                   (2, 130, 8, 2, 256, False)):
+        q, do = (torch.randn((b, t, h, d), generator=gen, device=dev)
+                 for _ in range(2))
+        k, v = (torch.randn((b, t, kh, d), generator=gen, device=dev)
+                for _ in range(2))
+        out, lse = fa._forward(q, k, v, causal, with_lse=True)
+        got = [fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
+                                      variant="cuda_core", wide=w)
+               for w in (True, False)]
+        same = all(torch.equal(a, c) for a, c in zip(*got))
+        phase(f"8a f32 tile: 64-row and one-warp CTAs the same bits, f32 "
+              f"{'causal' if causal else 'non-causal'} B={b} T={t} H={h} "
+              f"KH={kh} D={d} ({fa.bwd_splits(b, t, kh, h // kh, d, 'cuda_core')}"
+              f" splits)", same, f"dQ, dK, dV equal: {same}")
+    _restore_counts(saved)
+
+
 def flash_bwd_phase(gen, dev) -> dict:
     """8(a): the backward at phase 2's flash shapes at the training length
-    (stablelm-3b in bf16 and f32, starcoder2-3b's G 12, gemma-7b's D 256)
-    and whisper-small's non-causal encoder over 1500 frames (a ragged last
-    tile); the two planted faults; and the forward at the training
+    (stablelm-3b, starcoder2-3b's G 12, gemma-7b's D 256) and
+    whisper-small's non-causal encoder over 1500 frames (a ragged last
+    tile), each in bf16 and f32; the two planted faults in both types; the
+    f32 tile's CTA widths bitwise; and the forward at the training
     microbatch's shape for the kernels line."""
+    f32, bf16 = torch.float32, torch.bfloat16
     rows = {
-        "stablelm-3b": check_flash_bwd(1, 2048, 32, 32, 80, torch.bfloat16,
-                                       True, gen, dev, "stablelm-3b train",
+        "stablelm-3b": check_flash_bwd(1, 2048, 32, 32, 80, bf16, True, gen,
+                                       dev, "stablelm-3b train",
                                        faults=("dkdv unmasked",)),
-        "stablelm-3b f32": check_flash_bwd(1, 2048, 32, 32, 80,
-                                           torch.float32, True, gen, dev,
-                                           "stablelm-3b train"),
-        "starcoder2-3b": check_flash_bwd(1, 2048, 24, 2, 128, torch.bfloat16,
-                                         True, gen, dev, "starcoder2-3b"),
-        "gemma-7b": check_flash_bwd(1, 2048, 16, 16, 256, torch.bfloat16,
-                                    True, gen, dev, "gemma-7b"),
-        "whisper-small": check_flash_bwd(4, 1500, 12, 12, 64, torch.bfloat16,
-                                         False, gen, dev,
-                                         "whisper-small encoder",
+        "stablelm-3b f32": check_flash_bwd(1, 2048, 32, 32, 80, f32, True,
+                                           gen, dev, "stablelm-3b train",
+                                           faults=("dkdv unmasked",)),
+        "starcoder2-3b": check_flash_bwd(1, 2048, 24, 2, 128, bf16, True,
+                                         gen, dev, "starcoder2-3b"),
+        "starcoder2-3b f32": check_flash_bwd(1, 2048, 24, 2, 128, f32, True,
+                                             gen, dev, "starcoder2-3b"),
+        "gemma-7b": check_flash_bwd(1, 2048, 16, 16, 256, bf16, True, gen,
+                                    dev, "gemma-7b"),
+        "gemma-7b f32": check_flash_bwd(1, 2048, 16, 16, 256, f32, True, gen,
+                                        dev, "gemma-7b"),
+        "whisper-small": check_flash_bwd(4, 1500, 12, 12, 64, bf16, False,
+                                         gen, dev, "whisper-small encoder",
                                          faults=("tail tile skipped",)),
+        "whisper-small f32": check_flash_bwd(4, 1500, 12, 12, 64, f32, False,
+                                             gen, dev,
+                                             "whisper-small encoder",
+                                             faults=("tail tile skipped",)),
     }
+    check_f32_bwd_ctas(gen, dev)
     rows["forward"] = check_flash(1, TRAIN_SEQ, 32, 32, 80, torch.bfloat16,
                                   True, gen, dev, 2e-2,
                                   "stablelm-3b train microbatch")
@@ -2748,7 +2792,7 @@ def train_step_matches_cpu(dev) -> None:
                     f"elements off by more than lr/10: {moved} of "
                     f"{sum(x.numel() for x in p0)}")
 
-    # f32: every backward call on the CUDA-core walk, none on the tile
+    # f32: every backward call on the f32 tile, none on the tensor cores
     ok, detail = agree(("cuda", 1))
     bwd, by = out[("cuda", 1)][3:]
     phase("8b full-width 2-layer f32 train step: CUDA vs CPU plain path",
@@ -2761,6 +2805,74 @@ def train_step_matches_cpu(dev) -> None:
           detail + f", backward launches {bwd} (by variant {by})")
     del out, base
     free_device_memory()
+
+
+#: 8(b'): 8b's 2-layer f32 configuration trained on the card at B 1 x
+#: this sequence, for this many steps (the first one warms up)
+F32_TRAIN_SEQ, F32_TRAIN_STEPS = 2048, 3
+
+
+def train_f32_step(dev) -> dict:
+    """8(b'): 8b's configuration (stablelm-3b at full width, 2 layers, f32,
+    remat) trained on the card alone at B 1 x S 2048: the f32 tile on a
+    training path end to end.  Counts zeroed just before the steps and
+    read just after: every backward launch on the f32 tile (one a layer
+    and step), none on the tensor-core tile.  ms a step (the mean of all
+    but the first), then one more step profiled for the backward's share
+    of device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, Trainer
+
+    cfg = get_config("stablelm-3b").scaled(n_layers=2, dtype=torch.float32,
+                                           num_microbatches=1)
+    trainer = Trainer(build_model(cfg), AdamWConfig(lr=1e-4, warmup_steps=1,
+                                                    total_steps=10),
+                      device=dev)
+    state = trainer.init(torch.Generator(device=dev).manual_seed(SEED))
+    data = SyntheticLMData(cfg.vocab_size, F32_TRAIN_SEQ, 1, seed=SEED)
+    metrics, stamps = [], []
+    counters = {"backward": fa.BWD_LAUNCHES,
+                **{f"backward {k}": c
+                   for k, c in fa.BWD_VARIANT_LAUNCHES.items()}}
+    torch.cuda.synchronize()
+    for ctr in counters.values():
+        ctr.n = 0
+    t0 = time.perf_counter()
+
+    def on_metrics(step, m):
+        metrics.append(m)
+        stamps.append(time.perf_counter())
+
+    state = trainer.run(state, (data.batch_at(i) for i in range(
+        F32_TRAIN_STEPS)), steps=F32_TRAIN_STEPS, on_metrics=on_metrics)
+    torch.cuda.synchronize()
+    counts = {k: ctr.n for k, ctr in counters.items()}
+    steps = [float(x) for x in np.diff([t0] + stamps) * 1e3]
+    steady = float(np.mean(steps[1:]))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.run(state, iter([data.batch_at(F32_TRAIN_STEPS)]), steps=1)
+        torch.cuda.synchronize()
+    share = print_device_time("8b'", prof, steady)
+    n = cfg.n_layers * F32_TRAIN_STEPS
+    want = {"backward": n, "backward cuda_core": n, "backward tile": 0}
+    finite = all(math.isfinite(m["loss"]) for m in metrics)
+    phase(f"8b' full-width 2-layer stablelm-3b f32 train on the card, B 1 x "
+          f"S {F32_TRAIN_SEQ}, {F32_TRAIN_STEPS} steps",
+          finite and counts == want,
+          f"losses {[round(m['loss'], 4) for m in metrics]}, counts "
+          f"{counts} (want {want})")
+    print(f"  8b': ms/step {[round(x, 2) for x in steps]} (mean after the "
+          f"first {steady:.2f}), flash backward "
+          f"{'not measured' if share is None else f'{share:.1%}'} of the "
+          f"device's busy time on {gpu_name_and_limit()}", flush=True)
+    del state, trainer
+    free_device_memory()
+    return dict(counts=counts, ms_per_step=steady, bwd_share=share)
 
 
 def train_slice(dev) -> dict:
@@ -2857,6 +2969,13 @@ def profile_train_step(trainer, state, batch, step_ms) -> None:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trainer.run(state, iter([batch]), steps=1)
         torch.cuda.synchronize()
+    print_device_time("8c", prof, step_ms)
+
+
+def device_time_by_kind(prof) -> tuple:
+    """(device microseconds by kind, by kernel name) of a training trace:
+    the flash backward's kernels, the flash forward's, cuBLAS GEMMs,
+    copies and the rest."""
     groups = {"flash backward": 0.0, "flash forward": 0.0,
               "GEMM (cuBLAS)": 0.0, "copies": 0.0, "other kernels": 0.0}
     names: dict = {}
@@ -2869,10 +2988,10 @@ def profile_train_step(trainer, state, batch, step_ms) -> None:
         names[evt.key[:60]] = names.get(evt.key[:60], 0.0) + us
         name = evt.key.lower()
         if any(t in name for t in ("dkdv_tile_kernel", "dq_tile_kernel",
-                                   "split_sum_kernel", "dkdv_kernel",
-                                   "dq_kernel", "delta_kernel")):
+                                   "split_sum_kernel", "dkdv_f32_kernel",
+                                   "dq_f32_kernel", "delta_kernel")):
             groups["flash backward"] += us
-        elif "flash_tile_kernel" in name or "flash_kernel" in name:
+        elif "flash_tile_kernel" in name or "flash_f32_kernel" in name:
             groups["flash forward"] += us
         elif "memcpy" in name or "memset" in name:
             groups["copies"] += us
@@ -2881,20 +3000,30 @@ def profile_train_step(trainer, state, batch, step_ms) -> None:
             groups["GEMM (cuBLAS)"] += us
         else:
             groups["other kernels"] += us
+    return groups, names
+
+
+def print_device_time(tag, prof, step_ms) -> float:
+    """Print one profiled step's device time by kind against an unprofiled
+    step of ``step_ms``, its busy and idle shares and its top kernels;
+    returns the flash backward's share of the device's busy time (None
+    where the trace has no device time)."""
+    groups, names = device_time_by_kind(prof)
     _, busy = _device_busy(prof)
     wall = step_ms / 1e3
     if busy == 0:
-        print("  8c profile: device time not measured (no CUDA events)")
-        return
+        print(f"  {tag} profile: device time not measured (no CUDA events)")
+        return None
     shares = ", ".join(f"{k} {v / 1e6:.3f} s ({v / 1e6 / wall:.1%})"
                        for k, v in groups.items())
-    print(f"  8c device time by kind (one profiled step) against the "
+    print(f"  {tag} device time by kind (one profiled step) against the "
           f"unprofiled {wall:.3f} s step: {shares}; device busy (union of "
           f"intervals) {busy:.3f} s = {busy / wall:.1%}, idle "
           f"{1 - busy / wall:.1%}", flush=True)
     top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
-    print("  8c top device kernels: " + "; ".join(
+    print(f"  {tag} top device kernels: " + "; ".join(
         f"{k} {v / 1e3:.1f} ms" for k, v in top), flush=True)
+    return groups["flash backward"] / 1e6 / busy
 
 
 def restart_drill(dev) -> None:
@@ -2963,6 +3092,7 @@ def train_phase(dev) -> dict:
     t8 = time.perf_counter()
     rows = flash_bwd_phase(gen, dev)
     train_step_matches_cpu(dev)
+    rows["train f32"] = guarded("8b' f32 training", train_f32_step, dev) or {}
     rows["train"] = guarded("8c training slice", train_slice, dev) or {}
     restart_drill(dev)
     print(f"  phase 8: {time.perf_counter() - t8:.1f} s", flush=True)
@@ -3679,20 +3809,34 @@ def main() -> int:
                    source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu")
     bwd_cases = {
         "stablelm-3b": "stablelm-3b train microbatch B 1 T 2048, bf16 causal",
-        "stablelm-3b f32": "stablelm-3b B 1 T 2048, f32 causal",
+        "stablelm-3b f32": "stablelm-3b B 1 T 2048, f32 causal (8b' trains "
+                           "at this shape)",
         "starcoder2-3b": "starcoder2-3b B 1 T 2048 (G 12, D 128), bf16 causal",
+        "starcoder2-3b f32": "starcoder2-3b B 1 T 2048 (G 12, D 128), f32 "
+                             "causal",
         "gemma-7b": "gemma-7b B 1 T 2048 (D 256), bf16 causal",
+        "gemma-7b f32": "gemma-7b B 1 T 2048 (D 256), f32 causal",
         "whisper-small": "whisper-small encoder B 4 T 1500, bf16 non-causal",
+        "whisper-small f32": "whisper-small encoder B 4 T 1500, f32 "
+                             "non-causal",
     }
-    # one row per variant: the tile where bf16 routes to it, and the
-    # CUDA-core walk (f32's route, and bf16's control, timed in the same
-    # run); ``launches`` by variant from 8c
+    # one row per variant: the tile where bf16 routes to it, and the f32
+    # tile (f32's route, and bf16's control, timed in the same run);
+    # ``launches`` by variant from 8c, and for stablelm-3b's f32 row from
+    # 8b' (its f32 training path, counted on its own)
+    f32_counts = train.get("train f32", {}).get("counts", {})
     for key, case in bwd_cases.items():
         for variant, timed in train[key].items():
+            n = 0
+            if key == "stablelm-3b":
+                n = counts.get(f"backward {variant}", 0)
+            elif key == "stablelm-3b f32":
+                n = f32_counts.get(f"backward {variant}", 0)
             row = dict(name="flash_attention_bwd", case=case, **bwd_src,
-                       launches=counts.get(f"backward {variant}", 0)
-                       if key == "stablelm-3b" else 0, **timed)
-            if key != "stablelm-3b":
+                       launches=n, **timed)
+            if key == "stablelm-3b f32":
+                row.update(launches_from="8b'", on_main_path=False)
+            elif key != "stablelm-3b":
                 row.update(arch=key.split()[0], on_main_path=False)
             elif variant != "tile":
                 row.update(on_main_path=False)

@@ -47,8 +47,9 @@ SIGNATURES = {
                         ctypes.c_float, _P],
     "flash_attention_tile": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              ctypes.c_float, _P],
-    "flash_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    "flash_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
+                            _P],
     "flash_attention_bwd_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I,
                                  ctypes.c_float, _P],

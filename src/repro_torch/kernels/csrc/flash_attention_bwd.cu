@@ -17,7 +17,10 @@
 // Two variants; the wrapper (flash_attention.py: choose_bwd_variant) picks
 // one.  Neither uses atomics: every sum runs in one fixed order, so two
 // calls on the same inputs give the same bits.  Both start with
-// delta_kernel (Delta, one warp per (b, t, h) row).
+// delta_kernel (Delta, one warp per (b, t, h) row) and, where the wrapper
+// spreads a kv head's G query heads over `splits` dK/dV blocks (a GQA grid
+// too short for the card), add the splits' f32 partials in split order
+// (split_sum_kernel).
 //
 // 1. Tensor-core tiles (dq_tile_kernel, dkdv_tile_kernel), bf16 with D 64,
 //    80, 128 or 256.  Built from the forward's parts (attention_tile.cuh:
@@ -42,161 +45,96 @@
 //      dP^T = V dO^T directly, so P^T and dS^T land with keys as rows, the
 //      A-fragment layout of dV += P^T dO and dK += dS^T Q; lse and Delta
 //      are per-column values read from shared memory.
-//    - GQA: where (key tiles x KH x B) is under BWD_TARGET_BLOCKS, the
-//      wrapper splits each kv head's G query heads over `splits` blocks;
-//      each writes f32 partial dK/dV to scratch, and split_sum_kernel adds
-//      them in split order into the bf16 gradients.
 //    Rounding: P and dS are rounded to bf16 for their products (as
 //    FlashAttention-2 does); S, dP, dP - Delta, the exponentials and every
-//    accumulator stay f32.  Masking as the forward: rows and keys past T
-//    are zero-filled by cp.async's src-size 0 and never read; masked P and
-//    dS entries are set by a select; a warp that sees no (query, key) pair
-//    of a tile skips it.
-// 2. CUDA-core walk (dkdv_kernel, dq_kernel), the exact f32 path (and bf16
-//    at any other D):
-//    - dkdv_kernel: one block per (key tile, kv head, b).  It holds the
-//      tile's K and V in shared memory and its dK and dV sums in registers,
-//      and walks every query tile of each of the G query heads of its kv
-//      head (under the causal mask only the tiles at or below the
-//      diagonal), recomputing S, P, dP and dS for each.
-//    - dq_kernel: one block per (query tile, head, b), heaviest causal
-//      tiles first; it holds Q, dO and its dQ sum and walks the key tiles
-//      up to its last row (all of them without the mask).
-//    Every product is an f32 product of tiles staged in shared memory as
-//    f32 (bf16 inputs widen exactly), by a 16 x 16 thread grid whose
-//    threads each own a micro tile of the output (rows ty + 16 i, columns
-//    tx + 16 j).  Rows of the Q, K, V and dO tiles are padded to an odd
-//    stride, so the 16 threads of a half-warp reading one column of 16
-//    rows hit 16 banks.  Head dims are padded with zeros to DP, a multiple
-//    of 16 (80 stays 80).  Tiles are 64 rows (query rows and keys) up to
-//    DP 128, 32 past it.  Masked entries of P and dS are set to 0 by a
-//    select; rows and keys past T are zero-filled and never written.
+//    accumulator stay f32.
+// 2. The f32 tile (dq_f32_kernel, dkdv_f32_kernel), the exact path: f32 at
+//    any D <= 256, and bf16 at the head dims the tensor-core tiles are not
+//    built for.  Register-blocked FMA products on the CUDA cores, built
+//    from the forward's f32 tile (attention_f32.cuh: its S micro-tile with
+//    the d-split reduce-scatter, its P V column layout, the two-stage
+//    cp.async ring with widening, key_pad, wide_rows).  Nothing rounds
+//    below f32 and nothing uses TF32; bf16 inputs widen exactly in shared
+//    memory and the gradients are stored in the input's dtype.
+//    - dQ: rows are (position, group) pairs of one kv head, position-major
+//      as in the forward, so K/V tiles serve all G query heads.  A warp owns
+//      16 rows (8 past D 128), a CTA 64 (4 warps, 8 past D 128); where a
+//      64-row grid would leave SMs idle only the first warp owns rows (16
+//      or 8 a CTA) and the others share the copies.  The grid is 1-D, row
+//      tile major: the heaviest causal tiles of every head go first, so
+//      the last wave holds the lightest tiles.  Q and dO are widened once
+//      into shared memory, each row's lse (in log2 units) and Delta sit in
+//      registers.  K/V tiles of kKeys keys (32; 16 at D 128 and 256, where
+//      32 would not leave two CTAs an SM, or at D 256 not fit) stream
+//      through the ring up to the CTA's last row.  Per tile a warp
+//      computes S = Q K^T and dP = dO V^T as the forward's S micro-tile (8
+//      rows x 4 keys a lane over a d-slice, shuffle reduce-scatter), P =
+//      2^(S scale log2e - lse log2e) (no running max: lse is known),
+//      dS = P (dP - Delta) into the warp's own rows of shared memory (a
+//      __syncwarp orders them), and dQ += dS K in the forward's P V layout
+//      with K in V's place (8 rows x D / 16 columns a lane, keys in
+//      order).  dQ is scaled and stored once.
+//    - dK/dV: rows are the keys of one kv head, 64 a CTA (or one warp's)
+//      in the same warp layout; a 1-D grid, key tile major (the first keys,
+//      the heaviest causal tiles, of every head and split first).  Where
+//      KH x B is small the wrapper spreads a kv head's query heads over
+//      splits (to four waves of two CTAs an SM), which also evens out a
+//      causal grid's unequal tiles.  K and V are widened once into shared
+//      memory.  For each query head of the split, in order, tiles
+//      of kKeys queries (under the causal mask only from the CTA's first
+//      key on) stream Q, dO, lse and Delta through the ring.  S^T = K Q^T
+//      and dP^T = V dO^T run as the same S micro-tile with keys as rows,
+//      P^T and dS^T take per-column lse and Delta, and dV += P^T dO and
+//      dK += dS^T Q run in the P V layout: two accumulators of 8 keys x D /
+//      16 columns a lane (80 floats at D 80, 128 at D 128 and, with 8-key
+//      warps, at D 256).
+//    Shared memory a CTA (f32 rows padded as the forward's): dQ 79 KB at D
+//    64, 95 at D 80, 107 at D 128, 199 at D 256; dK/dV 89, 105, 113 and
+//    205 KB: two CTAs an SM up to D 128, one of 8 warps at D 256.  The
+//    kernels take 208-255 registers a thread and spill nothing in f32
+//    (ptxas -v); on bf16 inputs the dK/dV kernel spills 12-16 bytes at D
+//    128 and 256, where bf16 normally takes the tensor-core tiles.
+//    Bits.  Every accumulator adds its terms in one order (keys, or query
+//    heads then queries, ascending), one FMA a term.  A masked or skipped
+//    pair adds an exact zero, so which tiles a CTA or warp visits (its
+//    bound, its first query tile) never changes a bit: 64-row and one-warp
+//    CTAs give the same bits.
+// Masking, both variants: rows and keys past T are zero-filled by
+// cp.async's src-size 0 and never read; masked P and dS entries are set by
+// a select; a warp that sees no (query, key) pair of a tile skips it.
 // dQ, dK and dV are written once, in the input's dtype.
 //
 // What bounds it on an H100: the five products (S, dP, dV, dK, dQ) are 10 D
 // flops per visible (query, key) pair and head, 2.5x the forward's 4 D,
 // against the bytes of q, k, v, o, dO, lse and the three gradients, so it
 // is bound by operations: the bf16 tensor-core peak (989 TFLOP/s) for bf16
-// inputs, the f32 rate (67 TFLOP/s) for f32.  Both variants recompute S and
-// dP in each of their two kernels (7 products where 5 would do) and so do
-// the tiles' split warps at D 256; the tiles run on mma.sync, a fraction of
-// the tensor-core peak that only wgmma reaches (with K/V through TMA: later
-// work, as for the forward).  The CUDA-core walk runs far from either bound.
+// inputs, the f32 FMA rate (67 TFLOP/s) for the f32 tile.  Both variants
+// recompute S and dP in each of their two kernels (7 products where 5
+// would do: 14 D flops a pair), and so do the tiles' split warps at D 256.
+// The tensor-core tiles run on mma.sync, a fraction of the tensor-core
+// peak that only wgmma reaches (with K/V through TMA: later work, as for
+// the forward).  The f32 tile's products read 12 shared words per 32 FMAs
+// (S and dP) and 12 per 32 to 16 per 64 (the P V products), as the
+// forward's tile; each kernel holds 40-52% of the FMA rate at the
+// training shapes (two CTAs of 4 warps an SM, 255 registers), so the
+// 14 D flops of its two kernels take about 3x the operations bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "attention_f32.cuh"
 #include "attention_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // a 16 x 16 grid over each product's output
-constexpr int kTG = 16;
+constexpr int kThreads = 256;  // delta_kernel's and split_sum_kernel's blocks
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-template <int DP>
-struct Cfg {
-  static_assert(DP % kTG == 0 && DP <= 256, "padded head dim");
-  static constexpr int kTile = DP <= 128 ? 64 : 32;  // rows and keys a tile
-  static constexpr int kStride = DP + 1;             // f32 per Q/K/V/dO row
-  static constexpr int kPStride = kTile + 1;         // f32 per P/dS row
-  static constexpr int kRT = kTile / kTG;            // tile rows a thread
-  static constexpr int kDT = DP / kTG;               // head dims a thread
-  static constexpr size_t kSmem =
-      sizeof(float) * (4 * (size_t)kTile * kStride + 2 * (size_t)kTile * kPStride +
-                       2 * kTile);
-};
-
-// acc[i][j] += sum_{k < K} A(ty + 16 i, k) * B(k, tx + 16 j), where A(m, k)
-// is a[m * am + k * ak] and B(k, n) is b[k * bk + n * bn], in shared memory.
-template <int K, int TM, int TN>
-__device__ __forceinline__ void product(float (&acc)[TM][TN], const float* a,
-                                        int am, int ak, const float* b, int bk,
-                                        int bn, int ty, int tx) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float av[TM], bv[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) av[i] = a[(ty + kTG * i) * am + k * ak];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) bv[j] = b[k * bk + (tx + kTG * j) * bn];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// Rows [r0, r0 + kTile) of a (T, DP) view whose row t starts at
-// src + t * stride (D elements), as f32 with zeros past T and past D.
-template <typename T, int DP>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
-                                          size_t stride, int r0, int Tn,
-                                          int D) {
-  using C = Cfg<DP>;
-  for (int e = threadIdx.x; e < C::kTile * DP; e += kThreads) {
-    const int r = e / DP, d = e - r * DP;
-    float x = 0.f;
-    if (r0 + r < Tn && d < D) x = to_f32(src[(size_t)(r0 + r) * stride + d]);
-    dst[r * C::kStride + d] = x;
-  }
-}
-
-// The tile's lse and Delta rows (zeros past T).
-template <int DP>
-__device__ __forceinline__ void load_stats(float* ls, float* ds,
-                                           const float* lse,
-                                           const float* delta, int r0,
-                                           int Tn) {
-  for (int i = threadIdx.x; i < Cfg<DP>::kTile; i += kThreads) {
-    const bool ok = r0 + i < Tn;
-    ls[i] = ok ? lse[r0 + i] : 0.f;
-    ds[i] = ok ? delta[r0 + i] : 0.f;
-  }
-}
-
-// S = Q K^T and dP = dO V^T over one (query tile, key tile) pair; then P and
-// dS into shared memory (rows: queries, columns: keys), masked entries 0.
-template <int DP>
-__device__ __forceinline__ void scores(const float* Qs, const float* dOs,
-                                       const float* Ks, const float* Vs,
-                                       const float* Ls, const float* Ds,
-                                       float* Ps, float* dSs, int q0, int k0,
-                                       int Tn, int causal, float scale,
-                                       int ty, int tx) {
-  using C = Cfg<DP>;
-  float s[C::kRT][C::kRT], dp[C::kRT][C::kRT];
-#pragma unroll
-  for (int i = 0; i < C::kRT; ++i)
-#pragma unroll
-    for (int j = 0; j < C::kRT; ++j) s[i][j] = dp[i][j] = 0.f;
-  product<DP>(s, Qs, C::kStride, 1, Ks, 1, C::kStride, ty, tx);
-  product<DP>(dp, dOs, C::kStride, 1, Vs, 1, C::kStride, ty, tx);
-#pragma unroll
-  for (int i = 0; i < C::kRT; ++i) {
-    const int qi = ty + kTG * i;
-    const int qp = q0 + qi;
-#pragma unroll
-    for (int j = 0; j < C::kRT; ++j) {
-      const int kj = tx + kTG * j;
-      const int kp = k0 + kj;
-      const bool ok = qp < Tn && kp < Tn && (!causal || kp <= qp);
-      const float p = ok ? expf(s[i][j] * scale - Ls[qi]) : 0.f;
-      Ps[qi * C::kPStride + kj] = p;
-      dSs[qi * C::kPStride + kj] = ok ? p * (dp[i][j] - Ds[qi]) : 0.f;
-    }
-  }
-}
+using attn_f32::store_f32;
+using attn_f32::to_f32;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -204,7 +142,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// 1. Delta (B, H, T) = rowsum(dO * O), one warp a row.
+// Delta (B, H, T) = rowsum(dO * O), one warp a row.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
@@ -221,200 +159,39 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   if (lane == 0) delta[((size_t)(bt / Tn) * H + h) * Tn + bt % Tn] = acc;
 }
 
-// 2. dK and dV of one key tile of one kv head, summed over its G query
-// heads and every query tile that sees it.
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const T* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            T* __restrict__ dk, T* __restrict__ dv, int Tn, int H, int KH,
-            int D, int causal, float scale) {
-  using C = Cfg<DP>;
-  constexpr int BT = C::kTile;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BT * C::kStride;
-  float* Qs = Vs + BT * C::kStride;
-  float* dOs = Qs + BT * C::kStride;
-  float* Ps = dOs + BT * C::kStride;
-  float* dSs = Ps + BT * C::kPStride;
-  float* Ls = dSs + BT * C::kPStride;
-  float* Ds = Ls + BT;
-
-  const int b = blockIdx.z, kvh = blockIdx.y;
-  const int k0 = blockIdx.x * BT;
-  const int G = H / KH;
-  const int ty = threadIdx.x / kTG, tx = threadIdx.x % kTG;
-  const size_t kv_stride = (size_t)KH * D, q_stride = (size_t)H * D;
-  const size_t kv_base = ((size_t)b * Tn * KH + kvh) * D;
-  load_rows<T, DP>(Ks, k + kv_base, kv_stride, k0, Tn, D);
-  load_rows<T, DP>(Vs, v + kv_base, kv_stride, k0, Tn, D);
-
-  float dka[C::kRT][C::kDT], dva[C::kRT][C::kDT];
-#pragma unroll
-  for (int i = 0; i < C::kRT; ++i)
-#pragma unroll
-    for (int j = 0; j < C::kDT; ++j) dka[i][j] = dva[i][j] = 0.f;
-
-  // under the causal mask, queries before k0 see no key of the tile
-  const int q_first = causal ? k0 : 0;
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const size_t q_base = ((size_t)b * Tn * H + h) * D;
-    const float* lrow = lse + ((size_t)b * H + h) * Tn;
-    const float* drow = delta + ((size_t)b * H + h) * Tn;
-    for (int q0 = q_first; q0 < Tn; q0 += BT) {
-      __syncthreads();  // the previous step's tiles are no longer read
-      load_rows<T, DP>(Qs, q + q_base, q_stride, q0, Tn, D);
-      load_rows<T, DP>(dOs, dout + q_base, q_stride, q0, Tn, D);
-      load_stats<DP>(Ls, Ds, lrow, drow, q0, Tn);
-      __syncthreads();
-      scores<DP>(Qs, dOs, Ks, Vs, Ls, Ds, Ps, dSs, q0, k0, Tn, causal, scale,
-                 ty, tx);
-      __syncthreads();
-      // dV += P^T dO and dK += dS^T Q (rows: keys, columns: head dim)
-      product<BT>(dva, Ps, 1, C::kPStride, dOs, C::kStride, 1, ty, tx);
-      product<BT>(dka, dSs, 1, C::kPStride, Qs, C::kStride, 1, ty, tx);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < C::kRT; ++i) {
-    const int kp = k0 + ty + kTG * i;
-    if (kp >= Tn) continue;
-#pragma unroll
-    for (int j = 0; j < C::kDT; ++j) {
-      const int d = tx + kTG * j;
-      if (d >= D) continue;
-      const size_t off = kv_base + (size_t)kp * kv_stride + d;
-      store_f32(dk + off, dka[i][j] * scale);
-      store_f32(dv + off, dva[i][j]);
-    }
-  }
-}
-
-// 3. dQ of one query tile of one head, summed over the key tiles it sees.
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dq, int Tn, int H, int KH, int D, int causal,
-          float scale) {
-  using C = Cfg<DP>;
-  constexpr int BT = C::kTile;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BT * C::kStride;
-  float* Ks = dOs + BT * C::kStride;
-  float* Vs = Ks + BT * C::kStride;
-  float* Ps = Vs + BT * C::kStride;
-  float* dSs = Ps + BT * C::kPStride;
-  float* Ls = dSs + BT * C::kPStride;
-  float* Ds = Ls + BT;
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  // heaviest causal tiles (the last rows) first
-  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = tile * BT;
-  const int kvh = h / (H / KH);
-  const int ty = threadIdx.x / kTG, tx = threadIdx.x % kTG;
-  const size_t kv_stride = (size_t)KH * D, q_stride = (size_t)H * D;
-  const size_t kv_base = ((size_t)b * Tn * KH + kvh) * D;
-  const size_t q_base = ((size_t)b * Tn * H + h) * D;
-  load_rows<T, DP>(Qs, q + q_base, q_stride, q0, Tn, D);
-  load_rows<T, DP>(dOs, dout + q_base, q_stride, q0, Tn, D);
-  load_stats<DP>(Ls, Ds, lse + ((size_t)b * H + h) * Tn,
-                 delta + ((size_t)b * H + h) * Tn, q0, Tn);
-
-  float dqa[C::kRT][C::kDT];
-#pragma unroll
-  for (int i = 0; i < C::kRT; ++i)
-#pragma unroll
-    for (int j = 0; j < C::kDT; ++j) dqa[i][j] = 0.f;
-
-  // keys the tile sees: up to its last row under the causal mask
-  const int kend = causal ? min(q0 + BT, Tn) : Tn;
-  for (int k0 = 0; k0 < kend; k0 += BT) {
-    __syncthreads();  // the previous step's K, V and dS are no longer read
-    load_rows<T, DP>(Ks, k + kv_base, kv_stride, k0, Tn, D);
-    load_rows<T, DP>(Vs, v + kv_base, kv_stride, k0, Tn, D);
-    __syncthreads();
-    scores<DP>(Qs, dOs, Ks, Vs, Ls, Ds, Ps, dSs, q0, k0, Tn, causal, scale,
-               ty, tx);
-    __syncthreads();
-    // dQ += dS K (rows: queries, columns: head dim)
-    product<BT>(dqa, dSs, C::kPStride, 1, Ks, C::kStride, 1, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < C::kRT; ++i) {
-    const int qp = q0 + ty + kTG * i;
-    if (qp >= Tn) continue;
-#pragma unroll
-    for (int j = 0; j < C::kDT; ++j) {
-      const int d = tx + kTG * j;
-      if (d < D) store_f32(dq + q_base + (size_t)qp * q_stride + d,
-                           dqa[i][j] * scale);
-    }
-  }
-}
-
-template <typename T, int DP>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* delta, void* dq,
-           void* dk, void* dv, int B, int Tn, int H, int KH, int D,
-           int causal, float scale, cudaStream_t stream) {
-  using C = Cfg<DP>;
-  static const cudaError_t attr_kv = cudaFuncSetAttribute(
-      dkdv_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(C::kSmem));
-  static const cudaError_t attr_q = cudaFuncSetAttribute(
-      dq_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(C::kSmem));
-  if (attr_kv != cudaSuccess) return static_cast<int>(attr_kv);
-  if (attr_q != cudaSuccess) return static_cast<int>(attr_q);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
+template <typename T>
+cudaError_t launch_delta(const T* o, const T* dout, float* delta, int B,
+                         int Tn, int H, int D, cudaStream_t stream) {
   const int rows = B * Tn * H;
   delta_kernel<T><<<(rows + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0,
-                    stream>>>(static_cast<const T*>(o), dot, delta, B, Tn, H,
-                              D);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (Tn + C::kTile - 1) / C::kTile;
-  dkdv_kernel<T, DP><<<dim3(tiles, KH, B), kThreads, C::kSmem, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      Tn, H, KH, D, causal, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dq_kernel<T, DP><<<dim3(tiles, H, B), kThreads, C::kSmem, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), Tn, H, KH, D, causal,
-      scale);
-  return static_cast<int>(cudaGetLastError());
+                    stream>>>(o, dout, delta, B, Tn, H, D);
+  return cudaGetLastError();
+}
+
+// dK and dV = the sum of the splits' f32 partials, in split order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+split_sum_kernel(const float* __restrict__ part, int splits, size_t n,
+                 T* __restrict__ dk, T* __restrict__ dv) {
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * kThreads) {
+    float a = 0.f, c = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      a += part[(size_t)s * n + i];
+      c += part[(size_t)(splits + s) * n + i];
+    }
+    store_f32(dk + i, a);
+    store_f32(dv + i, c);
+  }
 }
 
 template <typename T>
-int by_head_dim(const void* q, const void* k, const void* v, const void* o,
-                const void* dout, const float* lse, float* delta, void* dq,
-                void* dk, void* dv, int B, int Tn, int H, int KH, int D,
-                int causal, float scale, cudaStream_t s) {
-#define REPRO_BWD(DP)                                                       \
-  return launch<T, DP>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Tn, H, \
-                       KH, D, causal, scale, s)
-  if (D <= 32) REPRO_BWD(32);
-  if (D <= 64) REPRO_BWD(64);
-  if (D <= 80) REPRO_BWD(80);
-  if (D <= 96) REPRO_BWD(96);
-  if (D <= 128) REPRO_BWD(128);
-  if (D <= 160) REPRO_BWD(160);
-  if (D <= 192) REPRO_BWD(192);
-  if (D <= 256) REPRO_BWD(256);
-#undef REPRO_BWD
-  return static_cast<int>(cudaErrorInvalidValue);
+cudaError_t launch_split_sum(const float* part, int splits, size_t n, T* dk,
+                             T* dv, cudaStream_t stream) {
+  const size_t want = (n + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  split_sum_kernel<T><<<blocks, kThreads, 0, stream>>>(part, splits, n, dk, dv);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------- 1. tensor-core tiles
@@ -751,22 +528,6 @@ dkdv_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// dK and dV = the sum of the splits' f32 partials, in split order.
-__global__ void __launch_bounds__(kThreads)
-split_sum_kernel(const float* __restrict__ part, int splits, size_t n,
-                 bf16* __restrict__ dk, bf16* __restrict__ dv) {
-  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * kThreads) {
-    float a = 0.f, c = 0.f;
-    for (int s = 0; s < splits; ++s) {
-      a += part[(size_t)s * n + i];
-      c += part[(size_t)(splits + s) * n + i];
-    }
-    dk[i] = __float2bfloat16(a);
-    dv[i] = __float2bfloat16(c);
-  }
-}
-
 template <int D>
 int launch_tile(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                 const bf16* dout, const float* lse, float* delta, bf16* dq,
@@ -781,10 +542,7 @@ int launch_tile(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
       static_cast<int>(S::kSmemKV));
   if (attr_q != cudaSuccess) return static_cast<int>(attr_q);
   if (attr_kv != cudaSuccess) return static_cast<int>(attr_kv);
-  const int rows = B * Tn * H;
-  delta_kernel<bf16><<<(rows + kThreads / 32 - 1) / (kThreads / 32), kThreads,
-                       0, stream>>>(o, dout, delta, B, Tn, H, D);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_delta<bf16>(o, dout, delta, B, Tn, H, D, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int kv_tiles = (Tn + S::kKVKeys - 1) / S::kKVKeys;
   dkdv_tile_kernel<D><<<dim3(kv_tiles, KH * splits, B), kTileThreads,
@@ -794,11 +552,8 @@ int launch_tile(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (splits > 1) {
-    const size_t n = (size_t)B * Tn * KH * D;
-    const size_t want = (n + kThreads - 1) / kThreads;
-    const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-    split_sum_kernel<<<blocks, kThreads, 0, stream>>>(part, splits, n, dk, dv);
-    err = cudaGetLastError();
+    err = launch_split_sum<bf16>(part, splits, (size_t)B * Tn * KH * D, dk, dv,
+                                 stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int q_tiles = (Tn + kQRows - 1) / kQRows;
@@ -807,30 +562,612 @@ int launch_tile(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ 2. f32 tile
+using attn_f32::kStages;
+
+// The f32 tile's geometry at a padded head dim DP for CTAs whose first
+// kRowWarps warps own rows (all of them, 64 rows, or one), storage type T.
+// As attn_f32::Shape, with tiles of kKeys streamed rows (keys in dQ,
+// queries in dK/dV) and, for load_kv and widen, the same member names.
+//   S: lane = kDS d-slices x (kNRB 8-row blocks x kNKB blocks of 4 columns).
+//   P V: lane = kNRB 8-row blocks x kNCG column groups; a lane's columns are
+//   float4s at 4 cg + 4 kNCG m, then single columns at 4 kNCG kF4 + cg.
+template <int DP, int kRowWarps, typename T>
+struct F32Bwd {
+  static_assert(DP % 16 == 0 && DP <= attn_f32::kMaxDim, "padded head dim: 16 | DP <= 256");
+  static constexpr int kDP = DP;
+  static constexpr int kWR = DP > 128 ? 8 : 16;      // rows a warp
+  static constexpr int kThreads = 32 * attn_f32::full_warps<DP>();
+  static constexpr int kRows = kWR * kRowWarps;        // rows a CTA
+  static constexpr int kKeys = DP >= 128 ? 16 : 32;    // rows a streamed tile
+  static constexpr int kRN = 4;                        // columns a lane in S
+  static constexpr int kNRB = kWR / 8;                 // 8-row blocks a warp
+  static constexpr int kNKB = kKeys / kRN;             // column blocks
+  static constexpr int kDS = 32 / (kNRB * kNKB);       // d-slices
+  static constexpr int kRPL = 8 / kDS;                 // S rows a lane keeps
+  static constexpr int kNCG = 32 / kNRB;               // column groups in P V
+  static constexpr int kF4 = DP / (4 * kNCG);          // float4 columns a lane
+  static constexpr int kR1 = (DP - 4 * kNCG * kF4) / kNCG;  // single columns
+  static constexpr int kF4n = kF4 > 0 ? kF4 : 1;       // (array extents)
+  static constexpr int kR1n = kR1 > 0 ? kR1 : 1;
+  static constexpr int kQS = DP + 4;                   // floats a resident row
+  static constexpr int kKS = DP + attn_f32::key_pad(DP, kDS);  // a streamed row
+  static constexpr int kPS = kKeys + 4;                // floats a P or dS row
+  static_assert(kDS * kNRB * kNKB == 32 && kDS <= 8 && (DP / 4) % kDS == 0,
+                "a warp's lanes cover its S tile");
+  static_assert(4 * kNCG * kF4 + kNCG * kR1 == DP, "a warp's lanes cover its rows");
+  static constexpr bool kWiden = !std::is_same<T, float>::value;
+  static constexpr bool kQ8 = false;
+  static constexpr int kRaw = DP * (int)sizeof(T);   // bytes a raw row (16 | kRaw)
+  static constexpr size_t kTileF = sizeof(float) * kKeys * kKS;
+  static constexpr size_t kRingTile = kWiden ? (size_t)kKeys * kRaw : kTileF;
+  static constexpr size_t kRing = kStages * 2 * kRingTile + (kWiden ? 2 * kTileF : 0);
+  static constexpr size_t kResident = sizeof(float) * kRows * kQS;  // one row set
+  static constexpr size_t kPTile = sizeof(float) * kRows * kPS;
+  // dQ: ring, Q and dO, dS; dK/dV: ring, K and V, P^T and dS^T, the ring's
+  // lse and Delta
+  static constexpr size_t kBytesQ = kRing + 2 * kResident + kPTile;
+  static constexpr size_t kBytesKV =
+      kRing + 2 * kResident + 2 * kPTile + sizeof(float) * kStages * 2 * kKeys;
+};
+
+// CTAs an SM the f32 tile is built for: two up to D 128, one of 8 warps
+// at D 256 (shared memory allows no more).
+template <int DP>
+__host__ __device__ constexpr int bwd_min_blocks() { return DP > 128 ? 1 : 2; }
+
+// Rows kp of x (and y) at off + kp * stride: load_kv's source for the
+// streamed tiles (K and V in dQ, Q and dO in dK/dV).
+template <typename T>
+struct Stream {
+  using KV = T;
+  const T* x;
+  const T* y;
+  const void* base;
+  size_t off, stride;
+  int D;
+  __device__ const T* k_row(int kp) const { return x + off + (size_t)kp * stride; }
+  __device__ const T* v_row(int kp) const { return y + off + (size_t)kp * stride; }
+};
+
+// a[i][j] = sum over this lane's d-slice of A(arow + i) . B(kb + kNKB j),
+// A rows of S::kQS floats (resident), B rows of S::kKS (streamed); the
+// forward's S micro-tile.  Then the reduce-scatter over the slices leaves
+// a[0 .. kRPL) the full products of rows arow + kRPL * slice + i.
+template <class S>
+__device__ __forceinline__ void micro_s(float (&a)[8][S::kRN], const float* sA,
+                                        int arow, const float* sB, int kb,
+                                        int slice, int lane) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < S::kRN; ++j) a[i][j] = 0.f;
+#pragma unroll 2
+  for (int step = 0; step < S::kDP / (4 * S::kDS); ++step) {
+    const int c = 4 * (S::kDS * step + slice);
+    float4 x[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      x[i] = *reinterpret_cast<const float4*>(sA + (arow + i) * S::kQS + c);
+#pragma unroll
+    for (int j = 0; j < S::kRN; ++j) {
+      const float4 y =
+          *reinterpret_cast<const float4*>(sB + (kb + S::kNKB * j) * S::kKS + c);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        a[i][j] = fmaf(x[i].x, y.x, a[i][j]);
+        a[i][j] = fmaf(x[i].y, y.y, a[i][j]);
+        a[i][j] = fmaf(x[i].z, y.z, a[i][j]);
+        a[i][j] = fmaf(x[i].w, y.w, a[i][j]);
+      }
+    }
+  }
+  attn_f32::scatter_rows<S::kDS / 2, 8, S::kRN>(a, lane);
+}
+
+// o(orow + i, the lane's columns) += sum_c P(orow + i, c) X(c, columns) over
+// the kKeys columns of P (rows of S::kPS floats) and rows of X (S::kKS),
+// c in order; the forward's P V product.
+template <class S>
+__device__ __forceinline__ void micro_pv(float4 (&o4)[8][S::kF4n],
+                                         float (&o1)[8][S::kR1n],
+                                         const float* sP, int orow,
+                                         const float* sX, int cg) {
+#pragma unroll 2
+  for (int c4 = 0; c4 < S::kKeys / 4; ++c4) {
+    float4 pr[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      pr[i] = *reinterpret_cast<const float4*>(sP + (orow + i) * S::kPS + 4 * c4);
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const float* xrow = sX + (4 * c4 + cc) * S::kKS;
+      float4 x4[S::kF4n];
+      float x1[S::kR1n];
+#pragma unroll
+      for (int c = 0; c < S::kF4; ++c)
+        x4[c] = *reinterpret_cast<const float4*>(xrow + 4 * cg + 4 * S::kNCG * c);
+#pragma unroll
+      for (int c = 0; c < S::kR1; ++c)
+        x1[c] = xrow[4 * S::kNCG * S::kF4 + cg + S::kNCG * c];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float p = attn_f32::lane4(pr[i], cc);
+#pragma unroll
+        for (int c = 0; c < S::kF4; ++c) {
+          o4[i][c].x = fmaf(p, x4[c].x, o4[i][c].x);
+          o4[i][c].y = fmaf(p, x4[c].y, o4[i][c].y);
+          o4[i][c].z = fmaf(p, x4[c].z, o4[i][c].z);
+          o4[i][c].w = fmaf(p, x4[c].w, o4[i][c].w);
+        }
+#pragma unroll
+        for (int c = 0; c < S::kR1; ++c) o1[i][c] = fmaf(p, x1[c], o1[i][c]);
+      }
+    }
+  }
+}
+
+template <class S>
+__device__ __forceinline__ void zero(float4 (&o4)[8][S::kF4n],
+                                     float (&o1)[8][S::kR1n]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int c = 0; c < S::kF4n; ++c) o4[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int c = 0; c < S::kR1n; ++c) o1[i][c] = 0.f;
+  }
+}
+
+// dst[d] = x * mul for the lane's columns d < D of one row.
+template <class S, typename T>
+__device__ __forceinline__ void store_row(T* dst, const float4 (&o4)[S::kF4n],
+                                          const float (&o1)[S::kR1n],
+                                          float mul, int cg, int D) {
+#pragma unroll
+  for (int c = 0; c < S::kF4; ++c) {
+    const int d = 4 * cg + 4 * S::kNCG * c;
+    if (d < D) store_f32(dst + d, o4[c].x * mul);
+    if (d + 1 < D) store_f32(dst + d + 1, o4[c].y * mul);
+    if (d + 2 < D) store_f32(dst + d + 2, o4[c].z * mul);
+    if (d + 3 < D) store_f32(dst + d + 3, o4[c].w * mul);
+  }
+#pragma unroll
+  for (int c = 0; c < S::kR1; ++c) {
+    const int d = 4 * S::kNCG * S::kF4 + cg + S::kNCG * c;
+    if (d < D) store_f32(dst + d, o1[c] * mul);
+  }
+}
+
+// Stage t's streamed tiles: X at ring tile 2 s, Y at 2 s + 1, or the widened
+// copies of both (every thread calls it after the stage has landed).
+template <class S, typename T>
+__device__ __forceinline__ void stage_tiles(char* ring, int t, const float*& sX,
+                                            const float*& sY) {
+  const int st = t & 1;
+  char* rx = ring + (2 * st) * S::kRingTile;
+  char* ry = ring + (2 * st + 1) * S::kRingTile;
+  if constexpr (S::kWiden) {
+    float* wx = reinterpret_cast<float*>(ring + kStages * 2 * S::kRingTile);
+    float* wy = wx + S::kKeys * S::kKS;
+    attn_f32::widen<S, T>(rx, nullptr, wx);
+    attn_f32::widen<S, T>(ry, nullptr, wy);
+    __syncthreads();
+    sX = wx;
+    sY = wy;
+  } else {
+    sX = reinterpret_cast<const float*>(rx);
+    sY = reinterpret_cast<const float*>(ry);
+  }
+}
+
+// dQ of the CTA's rows: (position, group) pairs [row0, row0 + kRows) of one
+// kv head, summed over the K/V tiles up to the CTA's last row.  Block i is
+// row tile i / (KH B) of (batch row, kv head) i % (KH B): heaviest causal
+// tiles (the last rows) of every head first.
+template <int DP, int W, typename T>
+__global__ void __launch_bounds__(32 * attn_f32::full_warps<DP>(), bwd_min_blocks<DP>())
+dq_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              T* __restrict__ dq, int B, int Tn, int H, int KH, int D,
+              int causal, float scale, int copy) {
+  using S = F32Bwd<DP, W, T>;
+  constexpr int kKeys = S::kKeys, kRN = S::kRN, kRPL = S::kRPL;
+  constexpr int kNKB = S::kNKB, kDS = S::kDS;
+  extern __shared__ int4 f32_smem[];
+  char* ring = reinterpret_cast<char*>(f32_smem);
+  float* sQ = reinterpret_cast<float*>(ring + S::kRing);
+  float* sdO = sQ + S::kRows * S::kQS;
+  float* sP = sdO + S::kRows * S::kQS;  // dS, the warp's own rows
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x % (KH * B) / KH, kh = blockIdx.x % KH;
+  const int G = H / KH, rows = Tn * G;
+  const int tiles = (rows + S::kRows - 1) / S::kRows;
+  const int tile = causal ? tiles - 1 - blockIdx.x / (KH * B)
+                          : blockIdx.x / (KH * B);
+  const int row0 = tile * S::kRows;
+  const int kend = causal ? (min(row0 + S::kRows, rows) - 1) / G + 1 : Tn;
+  const bool rowed = warp < W;  // else the warp only copies
+  const int wrow = warp * S::kWR;
+  const int slice = lane % kDS;
+  const int kb = lane / kDS % kNKB;
+  const int arow = wrow + 8 * (lane / (kDS * kNKB));
+  const int srow = arow + kRPL * slice;
+  const int orow = wrow + 8 * (lane / S::kNCG);
+  const int cg = lane % S::kNCG;
+  // row r of the kv head: position r / G, query head kh * G + r % G
+  auto qoff = [&](int r) {
+    return (((size_t)b * Tn + r / G) * H + (size_t)kh * G + r % G) * D;
+  };
+  auto soff = [&](int r) {  // its lse and Delta
+    return ((size_t)b * H + (size_t)kh * G + r % G) * Tn + r / G;
+  };
+
+  const Stream<T> kv{k, v, k, (size_t)b * Tn * KH * D + (size_t)kh * D,
+                     (size_t)KH * D, D};
+  auto load = [&](int t) {
+    const int st = t & 1;
+    attn_f32::load_kv<S>(kv, t * kKeys, kend, copy,
+                         ring + (2 * st) * S::kRingTile,
+                         ring + (2 * st + 1) * S::kRingTile, nullptr, nullptr);
+  };
+  const int ntiles = (kend + kKeys - 1) / kKeys;
+  if (ntiles > 0) load(0);
+  attn_tile::cp_async_commit();
+  // Q and dO as f32, zeros past D and past the rows
+  for (int e = tid; e < S::kRows * DP; e += S::kThreads) {
+    const int r = e / DP, d = e % DP;
+    const bool ok = row0 + r < rows && d < D;
+    const size_t off = ok ? qoff(row0 + r) + d : 0;
+    sQ[r * S::kQS + d] = ok ? to_f32(q[off]) : 0.f;
+    sdO[r * S::kQS + d] = ok ? to_f32(dout[off]) : 0.f;
+  }
+  // the lane's S rows: position (-1: none), lse in log2 units, Delta
+  int rpos[kRPL];
+  float l2[kRPL], dl[kRPL];
+#pragma unroll
+  for (int i = 0; i < kRPL; ++i) {
+    const int r = row0 + srow + i;
+    const bool ok = rowed && r < rows;
+    rpos[i] = ok ? (causal ? r / G : Tn - 1) : -1;
+    l2[i] = ok ? __fmul_rn(lse[soff(r)], attn_f32::kLog2e) : 0.f;
+    dl[i] = ok ? delta[soff(r)] : 0.f;
+  }
+  int wmax = rpos[0], wmin = rpos[0];
+#pragma unroll
+  for (int i = 1; i < kRPL; ++i) {
+    wmax = max(wmax, rpos[i]);
+    wmin = min(wmin, rpos[i]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    wmax = max(wmax, __shfl_xor_sync(0xffffffffu, wmax, o));
+    wmin = min(wmin, __shfl_xor_sync(0xffffffffu, wmin, o));
+  }
+  const float sl = scale * attn_f32::kLog2e;  // scores in log2 units
+
+  float4 o4[8][S::kF4n];
+  float o1[8][S::kR1n];
+  zero<S>(o4, o1);
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) load(t + 1);  // its stage was freed by tile t - 1
+    attn_tile::cp_async_commit();
+    attn_tile::cp_async_wait<1>();  // every group but the newest: tile t is in
+    __syncthreads();
+    const float* sK;
+    const float* sV;
+    stage_tiles<S, T>(ring, t, sK, sV);
+    const int k0 = t * kKeys;
+    if (k0 <= wmax) {  // warp-uniform: some row of this warp sees the tile
+      float s[8][kRN], dp[8][kRN];
+      micro_s<S>(s, sQ, arow, sK, kb, slice, lane);
+      micro_s<S>(dp, sdO, arow, sV, kb, slice, lane);
+      const bool need_mask = k0 + kKeys - 1 > wmin || k0 + kKeys > kend;
+#pragma unroll
+      for (int i = 0; i < kRPL; ++i) {
+        float* prow = sP + (srow + i) * S::kPS + kb;
+#pragma unroll
+        for (int j = 0; j < kRN; ++j) {
+          float p = attn_tile::ex2(__fmul_rn(s[i][j], sl) - l2[i]);
+          if (need_mask) {
+            const int kp = k0 + kb + kNKB * j;
+            p = (kp <= rpos[i] && kp < kend) ? p : 0.f;
+          }
+          prow[kNKB * j] = p * (dp[i][j] - dl[i]);  // dS
+        }
+      }
+      __syncwarp();  // the warp's dS rows are written; the warp reads them
+      micro_pv<S>(o4, o1, sP, orow, sK, cg);
+    }
+    __syncthreads();  // this stage and dS may be overwritten from here on
+  }
+  attn_tile::cp_async_wait<0>();
+  if (!rowed) return;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = row0 + orow + i;
+    if (r < rows) store_row<S>(dq + qoff(r), o4[i], o1[i], scale, cg, D);
+  }
+}
+
+// dK and dV of the CTA's keys [k0, k0 + kRows) of one kv head, summed over
+// the query heads of its split and every query tile that sees them.  Block
+// i is key tile i / (KH splits B) of (batch row, kv head, split) i % (KH
+// splits B): heaviest causal tiles (the first keys) of every head first.
+// With part null the CTA writes the gradients; else f32 partials at part
+// (dK of split s at [s], dV at [splits + s], each B * T * KH * D floats).
+template <int DP, int W, typename T>
+__global__ void __launch_bounds__(32 * attn_f32::full_warps<DP>(), bwd_min_blocks<DP>())
+dkdv_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ part,
+                int splits, int B, int Tn, int H, int KH, int D, int causal,
+                float scale, int copy) {
+  using S = F32Bwd<DP, W, T>;
+  constexpr int kKeys = S::kKeys, kRN = S::kRN, kRPL = S::kRPL;
+  constexpr int kNKB = S::kNKB, kDS = S::kDS;
+  extern __shared__ int4 f32_smem[];
+  char* ring = reinterpret_cast<char*>(f32_smem);
+  float* sK = reinterpret_cast<float*>(ring + S::kRing);
+  float* sV = sK + S::kRows * S::kQS;
+  float* sPt = sV + S::kRows * S::kQS;  // P^T and dS^T, the warp's own rows
+  float* sdSt = sPt + S::kRows * S::kPS;
+  float* sStat = sdSt + S::kRows * S::kPS;  // stage s: lse at [2 s], Delta at [2 s + 1]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int heads = KH * splits;
+  const int b = blockIdx.x % (heads * B) / heads;
+  const int kh = blockIdx.x % heads / splits, split = blockIdx.x % splits;
+  const int G = H / KH;
+  const int per = (G + splits - 1) / splits;
+  const int g0 = split * per, g1 = min(G, g0 + per);
+  const int k0 = blockIdx.x / (heads * B) * S::kRows;
+  const bool rowed = warp < W;  // else the warp only copies
+  const int wrow = warp * S::kWR;
+  const int kw0 = k0 + wrow;  // the warp's first key
+  const int slice = lane % kDS;
+  const int kb = lane / kDS % kNKB;
+  const int arow = wrow + 8 * (lane / (kDS * kNKB));
+  const int srow = arow + kRPL * slice;
+  const int orow = wrow + 8 * (lane / S::kNCG);
+  const int cg = lane % S::kNCG;
+  const size_t kv_stride = (size_t)KH * D;
+  const size_t kv_base = (size_t)b * Tn * kv_stride + (size_t)kh * D;
+
+  // under the causal mask, queries before the CTA's first key see none
+  const int q_first = causal ? k0 : 0;
+  const int nq = (Tn - q_first + kKeys - 1) / kKeys;  // query tiles a head
+  const int nsteps = (g1 - g0) * nq;
+  auto load = [&](int step) {
+    const int st = step & 1;
+    const int h = kh * G + g0 + step / nq;
+    const int q0 = q_first + step % nq * kKeys;
+    const Stream<T> qd{q, dout, q, ((size_t)b * Tn * H + h) * D, (size_t)H * D,
+                       D};
+    attn_f32::load_kv<S>(qd, q0, Tn, copy, ring + (2 * st) * S::kRingTile,
+                         ring + (2 * st + 1) * S::kRingTile, nullptr, nullptr);
+    if (tid < kKeys) {
+      const int r = q0 + tid;
+      const bool ok = r < Tn;
+      const size_t row = ((size_t)b * H + h) * Tn + (ok ? r : 0);
+      attn_tile::cp_async4(sStat + (2 * st) * kKeys + tid, lse + row, ok);
+      attn_tile::cp_async4(sStat + (2 * st + 1) * kKeys + tid, delta + row, ok);
+    }
+  };
+  if (nsteps > 0) load(0);
+  attn_tile::cp_async_commit();
+  // K and V as f32, zeros past D and past T
+  for (int e = tid; e < S::kRows * DP; e += S::kThreads) {
+    const int r = e / DP, d = e % DP;
+    const bool ok = k0 + r < Tn && d < D;
+    const size_t off = ok ? kv_base + (size_t)(k0 + r) * kv_stride + d : 0;
+    sK[r * S::kQS + d] = ok ? to_f32(k[off]) : 0.f;
+    sV[r * S::kQS + d] = ok ? to_f32(v[off]) : 0.f;
+  }
+  const float sl = scale * attn_f32::kLog2e;  // scores in log2 units
+
+  float4 dk4[8][S::kF4n], dv4[8][S::kF4n];
+  float dk1[8][S::kR1n], dv1[8][S::kR1n];
+  zero<S>(dk4, dk1);
+  zero<S>(dv4, dv1);
+  for (int step = 0; step < nsteps; ++step) {
+    if (step + 1 < nsteps) load(step + 1);  // its stage was freed by step - 1
+    attn_tile::cp_async_commit();
+    attn_tile::cp_async_wait<1>();  // every group but the newest: step is in
+    __syncthreads();
+    const float* sQ;
+    const float* sdO;
+    stage_tiles<S, T>(ring, step, sQ, sdO);
+    const float* sL = sStat + 2 * (step & 1) * kKeys;
+    const float* sD = sL + kKeys;
+    const int q0 = q_first + step % nq * kKeys;
+    // warp-uniform: some query of the tile sees some key of this warp
+    if (rowed && kw0 < Tn && (!causal || q0 + kKeys - 1 >= kw0)) {
+      float st[8][kRN], dpt[8][kRN];  // S^T -> P^T, dP^T -> dS^T
+      micro_s<S>(st, sK, arow, sQ, kb, slice, lane);
+      micro_s<S>(dpt, sV, arow, sdO, kb, slice, lane);
+      const bool need_mask = (causal && q0 < kw0 + S::kWR - 1) ||
+                             q0 + kKeys > Tn || kw0 + S::kWR > Tn;
+      float l2[kRN], dl[kRN];
+#pragma unroll
+      for (int j = 0; j < kRN; ++j) {
+        l2[j] = __fmul_rn(sL[kb + kNKB * j], attn_f32::kLog2e);
+        dl[j] = sD[kb + kNKB * j];
+      }
+#pragma unroll
+      for (int i = 0; i < kRPL; ++i) {
+        const int kp = k0 + srow + i;
+        float* prow = sPt + (srow + i) * S::kPS + kb;
+        float* drow = sdSt + (srow + i) * S::kPS + kb;
+#pragma unroll
+        for (int j = 0; j < kRN; ++j) {
+          float p = attn_tile::ex2(__fmul_rn(st[i][j], sl) - l2[j]);
+          if (need_mask) {
+            const int qp = q0 + kb + kNKB * j;
+            p = (qp < Tn && kp < Tn && (!causal || kp <= qp)) ? p : 0.f;
+          }
+          prow[kNKB * j] = p;
+          drow[kNKB * j] = p * (dpt[i][j] - dl[j]);
+        }
+      }
+      __syncwarp();  // the warp's P^T and dS^T rows are written
+      micro_pv<S>(dv4, dv1, sPt, orow, sdO, cg);
+      micro_pv<S>(dk4, dk1, sdSt, orow, sQ, cg);
+    }
+    __syncthreads();  // this stage, P^T and dS^T may be overwritten from here on
+  }
+  attn_tile::cp_async_wait<0>();
+  if (!rowed) return;
+  const size_t n_all = (size_t)B * Tn * kv_stride;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int kp = k0 + orow + i;
+    if (kp >= Tn) continue;
+    const size_t off = kv_base + (size_t)kp * kv_stride;
+    if (part != nullptr) {
+      store_row<S>(part + (size_t)split * n_all + off, dk4[i], dk1[i], scale,
+                   cg, D);
+      store_row<S>(part + (size_t)(splits + split) * n_all + off, dv4[i],
+                   dv1[i], 1.f, cg, D);
+    } else {
+      store_row<S>(dk + off, dk4[i], dk1[i], scale, cg, D);
+      store_row<S>(dv + off, dv4[i], dv1[i], 1.f, cg, D);
+    }
+  }
+}
+
+// Arguments of one f32-tile backward.
+template <typename T>
+struct F32Args {
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* dout;
+  const float* lse;
+  const float* delta;
+  T* dq;
+  T* dk;
+  T* dv;
+  float* part;
+  int splits, B, Tn, H, KH, D, causal;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int DP, int W, typename T>
+cudaError_t launch_dkdv_f32(const F32Args<T>& a, int copy) {
+  using S = F32Bwd<DP, W, T>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dkdv_f32_kernel<DP, W, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(S::kBytesKV));
+  if (attr != cudaSuccess) return attr;
+  const int tiles = (a.Tn + S::kRows - 1) / S::kRows;
+  dkdv_f32_kernel<DP, W, T>
+      <<<tiles * a.KH * a.splits * a.B, S::kThreads, S::kBytesKV, a.stream>>>(
+          a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv,
+          a.splits > 1 ? a.part : nullptr, a.splits, a.B, a.Tn, a.H, a.KH, a.D,
+          a.causal, a.scale, copy);
+  return cudaGetLastError();
+}
+
+template <int DP, int W, typename T>
+cudaError_t launch_dq_f32(const F32Args<T>& a, int copy) {
+  using S = F32Bwd<DP, W, T>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dq_f32_kernel<DP, W, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(S::kBytesQ));
+  if (attr != cudaSuccess) return attr;
+  const int tiles = (a.Tn * (a.H / a.KH) + S::kRows - 1) / S::kRows;
+  dq_f32_kernel<DP, W, T>
+      <<<tiles * a.KH * a.B, S::kThreads, S::kBytesQ, a.stream>>>(
+          a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, a.B, a.Tn, a.H, a.KH,
+          a.D, a.causal, a.scale, copy);
+  return cudaGetLastError();
+}
+
+// dK/dV (and the split sum), then dQ.  wide: 1 64-row CTAs, 0 one warp's
+// rows, -1 as attn_f32::wide_rows chooses for each kernel's grid.
+template <int DP, typename T>
+cudaError_t launch_f32(const F32Args<T>& a, int wide) {
+  constexpr int kFull = attn_f32::full_warps<DP>();
+  const size_t row_bytes = (size_t)a.D * sizeof(T);
+  const int G = a.H / a.KH;
+  const bool kv_wide =
+      wide < 0 ? attn_f32::wide_rows(a.Tn, a.KH * a.splits * a.B) : wide != 0;
+  const int copy_qd = attn_f32::copy_width(a.q, a.dout, row_bytes);
+  cudaError_t err = kv_wide ? launch_dkdv_f32<DP, kFull, T>(a, copy_qd)
+                            : launch_dkdv_f32<DP, 1, T>(a, copy_qd);
+  if (err != cudaSuccess) return err;
+  if (a.splits > 1) {
+    err = launch_split_sum<T>(a.part, a.splits, (size_t)a.B * a.Tn * a.KH * a.D,
+                              a.dk, a.dv, a.stream);
+    if (err != cudaSuccess) return err;
+  }
+  const bool q_wide =
+      wide < 0 ? attn_f32::wide_rows(a.Tn * G, a.KH * a.B) : wide != 0;
+  const int copy_kv = attn_f32::copy_width(a.k, a.v, row_bytes);
+  return q_wide ? launch_dq_f32<DP, kFull, T>(a, copy_kv)
+                : launch_dq_f32<DP, 1, T>(a, copy_kv);
+}
+
+template <typename T>
+int f32_bwd(const void* q, const void* k, const void* v, const void* o,
+            const void* dout, const float* lse, float* delta, void* dq,
+            void* dk, void* dv, float* part, int splits, int B, int Tn, int H,
+            int KH, int D, int causal, float scale, int wide,
+            cudaStream_t stream) {
+  const F32Args<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v), static_cast<const T*>(dout),
+                     lse, delta, static_cast<T*>(dq), static_cast<T*>(dk),
+                     static_cast<T*>(dv), part, splits, B, Tn, H, KH, D,
+                     causal, scale, stream};
+  cudaError_t err = launch_delta<T>(static_cast<const T*>(o), a.dout, delta, B,
+                                    Tn, H, D, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  switch (attn_f32::padded_dim(D)) {
+    case 64: return static_cast<int>(launch_f32<64, T>(a, wide));
+    case 80: return static_cast<int>(launch_f32<80, T>(a, wide));
+    case 128: return static_cast<int>(launch_f32<128, T>(a, wide));
+    case 256: return static_cast<int>(launch_f32<256, T>(a, wide));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
-// dQ, dK, dV of dense flash attention.  dtype: 0 = float32, 1 = bfloat16
-// (q, k, v, o, dout and the three gradients alike); q, o, dout, dq
-// (B, T, H, D); k, v, dk, dv (B, T, KH, D); lse (B, H, T) f32 from the
-// forward; delta: f32 scratch of B * H * T.  D <= 256, H a multiple of KH.
-// Returns the first nonzero cudaError_t of its three launches.
+// The f32 tile (variant 2).  dtype: 0 = float32, 1 = bfloat16 (q, k, v, o,
+// dout and the three gradients alike); q, o, dout, dq (B, T, H, D); k, v,
+// dk, dv (B, T, KH, D); lse (B, H, T) f32 from the forward; delta: f32
+// scratch of B * H * T.  D <= 256, H a multiple of KH.  splits: dK/dV
+// blocks a kv head's query heads are spread over (1 to G); part: f32
+// scratch of 2 * splits * B * T * KH * D when splits > 1 (else unused).
+// wide: 1 64-row CTAs, 0 one warp's rows, -1 chosen by the grid (the
+// results are the same bits).  Returns the first nonzero cudaError_t of
+// its launches.
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
                                    void* delta, void* dq, void* dk, void* dv,
-                                   int B, int Tn, int H, int KH, int D,
-                                   int causal, float scale, void* stream) {
+                                   void* part, int splits, int B, int Tn,
+                                   int H, int KH, int D, int causal,
+                                   float scale, int wide, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if (KH <= 0 || H % KH != 0 || D <= 0 || D > 256)
+  float* pt = static_cast<float*>(part);
+  if (KH <= 0 || H % KH != 0 || D <= 0 || D > attn_f32::kMaxDim ||
+      splits < 1 || splits > H / KH || (splits > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return by_head_dim<float>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Tn, H,
-                              KH, D, causal, scale, s);
+    return f32_bwd<float>(q, k, v, o, dout, l, dl, dq, dk, dv, pt, splits, B,
+                          Tn, H, KH, D, causal, scale, wide, s);
   if (dtype == 1)
-    return by_head_dim<__nv_bfloat16>(q, k, v, o, dout, l, dl, dq, dk, dv, B,
-                                      Tn, H, KH, D, causal, scale, s);
+    return f32_bwd<__nv_bfloat16>(q, k, v, o, dout, l, dl, dq, dk, dv, pt,
+                                  splits, B, Tn, H, KH, D, causal, scale, wide,
+                                  s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

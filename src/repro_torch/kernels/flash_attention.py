@@ -22,12 +22,16 @@ log-sum-exp), whose plain version is ``ref.flash_attention_bwd_ref``.  It
 has two variants too, picked by :func:`choose_bwd_variant`: ``"tile"``,
 tensor-core tiles (``mma.sync`` fed by ``cp.async``) for bf16 at D 64, 80,
 128 or 256, which round P and dS to bf16 for their products and keep S,
-dP, the exponentials and every sum in f32; or ``"cuda_core"``, the f32
-walk (and bf16 at any other D).  Neither uses atomics, so two calls on the
-same inputs give the same bits.  Where a GQA grid has too few dK/dV blocks
-to fill the card, :func:`bwd_splits` spreads each kv head's query heads
-over several blocks whose f32 partials one more kernel sums in a fixed
-order.
+dP, the exponentials and every sum in f32; or ``"cuda_core"``, the exact
+f32 tile (f32, and bf16 at any other D): the forward's register-blocked
+FMA micro-tiles (``csrc/attention_f32.cuh``) in a dQ kernel over (position,
+group) rows and a dK/dV kernel over a kv head's keys, 32-key (16 at D 128
+and 256) tiles through a ``cp.async`` ring, exponentials in log2 units,
+nothing below f32; ``ref.flash_attention_bwd_f32_tile_ref`` models its
+order.  Neither uses atomics, so two calls on the same inputs give the
+same bits.  Where a GQA grid has too few dK/dV blocks to fill the card,
+:func:`bwd_splits` spreads each kv head's query heads over several blocks
+whose f32 partials one more kernel sums in a fixed order.
 :func:`flash_attention` runs through :class:`FlashAttentionFn` when
 autograd needs its gradient (grad enabled and an input requiring grad):
 the forward then also writes the log-sum-exp, and the backward launches
@@ -73,6 +77,9 @@ BWD_VARIANT_LAUNCHES = {name: build.Counter()
 #: dK/dV blocks the backward tile's grid should have (two per SM of an
 #: H100) before :func:`bwd_splits` spreads a kv head's query heads
 BWD_TARGET_BLOCKS = 264
+#: the same for the f32 tile: four waves of two CTAs an SM, over which a
+#: causal grid's unequal blocks (heaviest first) even out
+BWD_F32_TARGET_BLOCKS = 4 * 264
 
 
 def choose_variant(dtype: torch.dtype, d: int) -> str:
@@ -85,20 +92,25 @@ def choose_variant(dtype: torch.dtype, d: int) -> str:
 
 def choose_bwd_variant(dtype: torch.dtype, d: int) -> str:
     """The backward's variant: ``"tile"`` (tensor cores) for bf16 at the
-    tile's head dims, else ``"cuda_core"`` (the f32 walk)."""
+    tile's head dims, else ``"cuda_core"`` (the f32 tile)."""
     return choose_variant(dtype, d)
 
 
-def bwd_splits(b: int, t: int, kh: int, g: int, d: int) -> int:
-    """Blocks each kv head's G query heads are spread over in the backward
-    tile's dK/dV grid: 1 where (key tiles x KH x B) blocks reach
-    ``BWD_TARGET_BLOCKS``, else enough to (nearly) reach it, each split
-    taking ceil(G / splits) heads and none empty."""
-    keys = 64 if d <= 128 else 32  # a dK/dV block's (csrc BwdShape::kKVKeys)
+def bwd_splits(b: int, t: int, kh: int, g: int, d: int,
+               variant: str = "tile") -> int:
+    """Blocks each kv head's G query heads are spread over in the
+    ``variant``'s dK/dV grid: 1 where (key tiles x KH x B) blocks reach
+    the variant's target (``BWD_TARGET_BLOCKS``, the f32 tile's
+    ``BWD_F32_TARGET_BLOCKS``), else enough to (nearly) reach it, each
+    split taking ceil(G / splits) heads and none empty."""
+    f32 = variant == "cuda_core"
+    # keys a dK/dV block: the tile's BwdShape::kKVKeys, the f32 tile's 64
+    keys = 64 if d <= 128 or f32 else 32
+    target = BWD_F32_TARGET_BLOCKS if f32 else BWD_TARGET_BLOCKS
     blocks = -(-t // keys) * kh * b
-    if g == 1 or blocks >= BWD_TARGET_BLOCKS:
+    if g == 1 or blocks >= target:
         return 1
-    per = -(-g // min(g, -(-BWD_TARGET_BLOCKS // blocks)))
+    per = -(-g // min(g, -(-target // blocks)))
     return -(-g // per)
 
 
@@ -161,14 +173,16 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
 
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                         variant: str | None = None,
-                        splits: int | None = None):
+                        splits: int | None = None,
+                        wide: bool | None = None):
     """dQ, dK, dV of :func:`flash_attention` (the CUDA backward): q, out and
     dout (B,T,H,D), k/v (B,T,KH,D) CUDA tensors of one dtype, lse the
     forward's f32 (B, H, T).  Returns (dq, dk, dv) in q's dtype.
-    ``variant`` (default :func:`choose_bwd_variant`) and ``splits`` (the
-    tile's, default :func:`bwd_splits`) force a route, to compare the
-    variants on the same inputs; a variant that does not take the inputs
-    raises."""
+    ``variant`` (default :func:`choose_bwd_variant`), ``splits`` (default
+    :func:`bwd_splits`) and, for the f32 tile, ``wide`` (64-row CTAs, or
+    one warp's rows; default: as the grid fills the card) force a route,
+    to compare routes on the same inputs; a variant that does not take the
+    inputs raises."""
     b, t, h, d = q.shape
     if variant is None:
         variant = choose_bwd_variant(q.dtype, d)
@@ -178,6 +192,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     if variant == "tile" and choose_bwd_variant(q.dtype, d) != "tile":
         raise ValueError(f"the tile backward takes bf16 at head dims "
                          f"{TILE_HEAD_DIMS}, got {q.dtype} at {d}")
+    if variant == "tile" and wide is not None:
+        raise ValueError("wide applies to the f32 tile (cuda_core) only")
     _check(q, k, v, out=out, dout=dout)
     kh = k.shape[2]
     if (lse.dtype != torch.float32 or lse.shape != (b, h, t)
@@ -185,7 +201,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
         raise ValueError(f"lse must be a contiguous f32 {(b, h, t)} tensor on "
                          f"{q.device}, got {lse.dtype} {tuple(lse.shape)}")
     if splits is None:
-        splits = bwd_splits(b, t, kh, h // kh, d)
+        splits = bwd_splits(b, t, kh, h // kh, d, variant)
     if not 1 <= splits <= h // kh:
         raise ValueError(f"splits must be in 1..{h // kh}, got {splits}")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
@@ -197,15 +213,17 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     ptrs = [x.data_ptr() for x in (q, k, v, out, dout, lse, delta, dq, dk,
                                    dv)]
     scale = float(1.0 / math.sqrt(d))
+    part = (torch.empty((2 * splits, *k.shape), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
+    ptrs.append(part.data_ptr() if part is not None else None)
     if variant == "tile":
-        part = (torch.empty((2 * splits, *k.shape), dtype=torch.float32,
-                            device=q.device) if splits > 1 else None)
-        err = lib.flash_attention_bwd_tile(
-            *ptrs, part.data_ptr() if part is not None else None, splits,
-            b, t, h, kh, d, int(causal), scale, stream)
+        err = lib.flash_attention_bwd_tile(*ptrs, splits, b, t, h, kh, d,
+                                           int(causal), scale, stream)
     else:
-        err = lib.flash_attention_bwd(_DTYPES[q.dtype], *ptrs, b, t, h, kh,
-                                      d, int(causal), scale, stream)
+        err = lib.flash_attention_bwd(_DTYPES[q.dtype], *ptrs, splits, b, t,
+                                      h, kh, d, int(causal), scale,
+                                      -1 if wide is None else int(wide),
+                                      stream)
     build.check(err, f"flash_attention_bwd ({variant})")
     BWD_VARIANT_LAUNCHES[variant].bump()
     BWD_LAUNCHES.bump()

@@ -464,3 +464,76 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
         out = flash_attention_ref(*leaves, causal=causal)
         return torch.autograd.grad(out, leaves, dout)
+
+
+def f32_bwd_tile_rows(d: int) -> int:
+    """Rows a streamed tile of the f32 backward holds at head dim ``d``:
+    keys in dQ, queries in dK/dV (``F32Bwd::kKeys`` of
+    ``csrc/flash_attention_bwd.cu``: 32, or 16 where ``d`` pads to 128 or
+    256)."""
+    return 32 if d <= 80 else 16
+
+
+def flash_attention_bwd_f32_tile_ref(q, k, v, dout, *, causal: bool = True,
+                                     out=None, lse=None, fault=None):
+    """The f32 backward tile's order of operations (the ``cuda_core``
+    variant of ``csrc/flash_attention_bwd.cu``), for tests.  q and dout
+    (B, T, H, D), k and v (B, T, KH, D) read as f32; ``out`` and the f32
+    (B, H, T) ``lse`` are the forward's (default: the f32 tile's, from
+    :func:`flash_attention_f32_tile_ref`).  Delta = rowsum(dO * out).
+    Scores in log2 units: P = 2^(S * (scale * log2 e) - lse * log2 e),
+    masked by select; dS = P (dP - Delta).  dQ walks tiles of
+    :func:`f32_bwd_tile_rows` keys and sums dS K in tile order; dK and dV
+    walk each kv head's query heads in order and, for each, tiles of as
+    many queries, summing P^T dO and dS^T Q; dQ and dK are scaled at the
+    end.  ``fault`` plants one for tests: ``"dkdv unmasked"`` (the causal
+    mask dropped in dK and dV) or ``"tail tile skipped"`` (each walk stops
+    at its last whole tile).  Returns (dq, dk, dv) in q's dtype."""
+    b, t, h, d = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    scale = 1.0 / math.sqrt(d)
+    if out is None or lse is None:
+        out, lse = flash_attention_f32_tile_ref(q, k, v, causal=causal,
+                                                with_lse=True)
+    log2e = torch.tensor(LOG2E, dtype=torch.float32)
+    sl = torch.tensor(scale, dtype=torch.float32) * log2e
+    qh, doh = (x.float().transpose(1, 2) for x in (q, dout))   # (B, H, T, D)
+    kf, vf = (x.float().transpose(1, 2) for x in (k, v))       # (B, KH, T, D)
+    lse2 = lse.float() * log2e                                  # (B, H, T)
+    delta = (doh * out.float().transpose(1, 2)).sum(-1)         # (B, H, T)
+    pos = torch.arange(t, device=q.device)
+    rows = f32_bwd_tile_rows(d)
+    stop = t // rows * rows if fault == "tail tile skipped" else t
+
+    def p_ds(qx, dox, kx, vx, l2, dl, qp, kp, masked):
+        """P and dS of queries qp against keys kp (rows: queries)."""
+        p = torch.exp2(torch.matmul(qx, kx.transpose(-1, -2)) * sl
+                       - l2[..., None])
+        if masked:
+            p = torch.where(kp[None, :] <= qp[:, None], p, 0.0)
+        dp = torch.matmul(dox, vx.transpose(-1, -2))
+        return p, p * (dp - dl[..., None])
+
+    # dQ: key tiles in order, every query head at once
+    kx, vx = (x.repeat_interleave(g, 1) for x in (kf, vf))     # (B, H, T, D)
+    dq = torch.zeros_like(qh)
+    for k0 in range(0, stop, rows):
+        k1 = min(k0 + rows, t)
+        _, ds = p_ds(qh, doh, kx[:, :, k0:k1], vx[:, :, k0:k1], lse2, delta,
+                     pos, pos[k0:k1], causal)
+        dq = dq + torch.matmul(ds, kx[:, :, k0:k1])
+    # dK, dV: query head g of every kv head, then its query tiles, in order
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for gi in range(g):
+        sel = slice(gi, h, g)                 # heads kh * G + gi
+        for q0 in range(0, stop, rows):
+            q1 = min(q0 + rows, t)
+            qt, dot = qh[:, sel, q0:q1], doh[:, sel, q0:q1]
+            p, ds = p_ds(qt, dot, kf, vf, lse2[:, sel, q0:q1],
+                         delta[:, sel, q0:q1], pos[q0:q1], pos,
+                         causal and fault != "dkdv unmasked")
+            dv = dv + torch.matmul(p.transpose(-1, -2), dot)
+            dk = dk + torch.matmul(ds.transpose(-1, -2), qt)
+    return tuple(x.transpose(1, 2).to(q.dtype).contiguous()
+                 for x in (dq * scale, dk * scale, dv))

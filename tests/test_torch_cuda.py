@@ -27,8 +27,9 @@ The split-KV walk keeps scores, P and partials in f32, so its bf16 output
 is held to one bf16 rounding step (rtol 2**-7) and, in f32, to its model
 within 1e-5.  Head dim 256 (gemma-7b) is swept in every variant over every
 pool type, and flash at D 256 in both its variants.  The flash backward is
-held in both its variants (the tensor-core tile and the bf16 and f32
-CUDA-core walk) to phase 8(a)'s limits, and its determinism bitwise.  The engine's dispatch
+held in both its variants (the tensor-core tile, and the f32 tile on f32
+and on widened bf16 inputs) to phase 8(a)'s limits, and its determinism
+and the f32 tile's 64-row and one-warp CTAs bitwise.  The engine's dispatch
 is run with the CUDA sync debug mode at "error" while its lock is held.
 """
 
@@ -1110,8 +1111,8 @@ BWD_SHAPES = [
     (1, 300, 24, 2, 128, True),    # G 12 over few key tiles: the split
     (2, 130, 8, 2, 256, True),     # GQA at D 256: split warps
 ]
-#: (dtype, variant, shape): every shape in f32 on the walk, and in bf16 on
-#: the walk and, at the tile's head dims, on the tile
+#: (dtype, variant, shape): every shape in f32 on the f32 tile, and in bf16
+#: on the f32 tile and, at the tile's head dims, on the tensor-core tile
 BWD_CASES = [
     pytest.param(dtype, variant, *shape,
                  id=f"{variant}-{str(dtype)[6:]}-" + "-".join(map(str, shape)))
@@ -1151,8 +1152,9 @@ def test_flash_bwd_matches_plain(dev, dtype, variant, b, t, h, kh, d,
     """The CUDA backward against ``flash_attention_bwd_ref`` (autograd
     through the plain forward): through ``FlashAttentionFn`` where the
     variant is the one ``choose_bwd_variant`` picks, else forced through
-    ``flash_attention_bwd``'s ``variant`` (the bf16 walk at the tile's
-    head dims), which the routing leaves as it is."""
+    ``flash_attention_bwd``'s ``variant`` (the f32 tile on bf16 inputs at
+    the tensor-core tile's head dims), which the routing leaves as it
+    is."""
     from repro_torch.kernels.ref import flash_attention_bwd_ref
 
     q, k, v, do = _bwd_inputs(b, t, h, kh, d, dtype, dev, seed=t + h + d)
@@ -1186,7 +1188,7 @@ def test_flash_bwd_matches_plain(dev, dtype, variant, b, t, h, kh, d,
 def test_flash_bwd_is_deterministic(dev, variant, splits, b, t, h, kh, d,
                                     causal):
     """No atomics: two calls on the same bf16 inputs give the same bits,
-    on the tile with its GQA split and without it, and on the walk."""
+    on the tile with its GQA split and without it, and on the f32 tile."""
     q, k, v, do = _bwd_inputs(b, t, h, kh, d, torch.bfloat16, dev, seed=d)
     out, lse = flash_attention._forward(q, k, v, causal, with_lse=True)
     kw = dict(causal=causal, variant=variant)
@@ -1198,9 +1200,34 @@ def test_flash_bwd_is_deterministic(dev, variant, splits, b, t, h, kh, d,
         assert torch.equal(a, c)
 
 
+@pytest.mark.parametrize("splits", [None, 1])
+@pytest.mark.parametrize("b,t,h,kh,d,causal", [
+    (2, 64, 32, 32, 80, True),    # phase 8b's short grid: one-warp CTAs
+    (1, 2048, 32, 32, 80, True),  # stablelm-3b: 64-row CTAs
+    (1, 300, 24, 2, 128, True),   # G 12: the GQA split
+    (2, 130, 8, 2, 256, False),   # D 256: 8-row warps
+    (3, 3, 2, 2, 16, True),       # three tokens, D padded to 64
+    (4, 1500, 12, 12, 64, False)])
+def test_flash_bwd_f32_tile_bits(dev, splits, b, t, h, kh, d, causal):
+    """The f32 tile: two calls on the same f32 inputs give the same bits,
+    and 64-row and one-warp CTAs give the same bits, with the grid's GQA
+    split and without it."""
+    q, k, v, do = _bwd_inputs(b, t, h, kh, d, torch.float32, dev, seed=d)
+    out, lse = flash_attention._forward(q, k, v, causal, with_lse=True)
+    kw = dict(causal=causal, variant="cuda_core", splits=splits)
+    first = flash_attention.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    again = flash_attention.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    wide = flash_attention.flash_attention_bwd(q, k, v, out, do, lse,
+                                               wide=True, **kw)
+    narrow = flash_attention.flash_attention_bwd(q, k, v, out, do, lse,
+                                                 wide=False, **kw)
+    for a, c, w, n in zip(first, again, wide, narrow):
+        assert torch.equal(a, c) and torch.equal(w, n) and torch.equal(a, w)
+
+
 def test_flash_bwd_routes_by_dtype(dev):
-    """Autograd's backward takes the tile for bf16 at D 80 and the walk
-    for f32, counted in ``BWD_VARIANT_LAUNCHES``."""
+    """Autograd's backward takes the tile for bf16 at D 80 and the f32
+    tile for f32, counted in ``BWD_VARIANT_LAUNCHES``."""
     for dtype, want in ((torch.bfloat16, "tile"),
                         (torch.float32, "cuda_core")):
         q, k, v, do = _bwd_inputs(1, 96, 4, 4, 80, dtype, dev, seed=3)
