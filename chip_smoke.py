@@ -941,6 +941,10 @@ def serve_full_width(dev):
     print(f"  int8 vs bf16 pages, greedy token match: "
           f"{token_match(bf16['tokens'], int8['tokens'])}", flush=True)
     schemes = serve_schemes(cfg, params, dev)
+    t3d = time.perf_counter()
+    guarded("3d scheduler policies", serve_policies, cfg, params, dev,
+            schemes["WFE"]["tokens"])
+    print(f"  phase 3d: {time.perf_counter() - t3d:.1f} s", flush=True)
     runtime = serve_runtime_phase(cfg, params, dev, bf16, int8)
     zoo = guarded("model zoo stablelm-3b prefill", zoo_dense_prefill, cfg,
                   params, dev)
@@ -1024,12 +1028,195 @@ def serve_schemes(cfg, params, dev) -> dict:
                   f"clock (spreads widely between calls): {gen / wall:.2f} "
                   f"output tokens/s, {wall:.3f} s wall; {kinds}", flush=True)
             out[scheme] = dict(era_scan_launches=scan_n,
-                               largest_scan=list(largest))
+                               largest_scan=list(largest), tokens=toks)
             del engine
             free_device_memory()
     finally:
         ops.can_delete_blocks_interval = scan
     return out
+
+
+def latency(reqs) -> str:
+    """p50/p95 of the requests' time to first token and time per output
+    token (``Request.ttft``/``tpot``, host clock, submit to token), in
+    ms."""
+    out = []
+    for name in ("ttft", "tpot"):
+        got = [getattr(r, name) for r in reqs]
+        got = np.array([v for v in got if v is not None]) * 1e3
+        out.append(f"{name.upper()} p50 {np.percentile(got, 50):.2f} ms, "
+                   f"p95 {np.percentile(got, 95):.2f} ms" if len(got)
+                   else f"{name.upper()} none")
+    return "; ".join(out) + f" ({len(reqs)} requests, host clock)"
+
+
+def watch_victims(sched) -> list:
+    """(requester's SLO class, victim's class) of every preemption the
+    scheduler's shedding ladder picks from here on."""
+    pick, pairs = sched._pick_victim, []
+
+    def watched(exclude, shard=None):
+        victim = pick(exclude, shard=shard)
+        if victim is not None:
+            pairs.append((exclude.slo, victim.slo))
+        return victim
+
+    sched._pick_victim = watched
+    return pairs
+
+
+def policy_window(cfg, params, dev, *, n_blocks=2048, **engine_kw) -> dict:
+    """3c's 8-request window (``_window``, salt 1) on phase 3's engine
+    settings with ``engine_kw`` on top, each paged-attention call's
+    variant held against ``choose_variant`` (one thread), launch counts
+    zeroed just before and read just after."""
+    from repro_torch.kernels import era_scan as es
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve import ServeEngine
+
+    engine = ServeEngine(cfg, params, n_blocks=n_blocks, block_size=16,
+                         max_batch=8, chunk_size=256, use_kernel=True,
+                         device=dev, **engine_kw)
+    tid = engine.pool.register_thread()
+    log = PlanLog(engine, per_call=True)
+    counters = [pa.LAUNCHES, es.LAUNCHES, *pa.VARIANT_LAUNCHES.values()]
+    for ctr in counters:
+        ctr.n = 0
+    wall, _, reqs = _window(engine, tid, cfg, salt=1)
+    launches = {"paged_attention_chunk": pa.LAUNCHES.n,
+                "era_scan_interval": es.LAUNCHES.n,
+                **{k: ctr.n for k, ctr in pa.VARIANT_LAUNCHES.items()}}
+    log.close()
+    out = dict(stats=dict(engine.sched.stats), wall=wall, reqs=reqs,
+               tokens=[r.generated for r in reqs], launches=launches,
+               by_kind=log.by_kind(), wrong=log.wrong,
+               drained=(engine.pool.unreclaimed() == 0
+                        and engine.pool.free_blocks == n_blocks))
+    del engine, log
+    free_device_memory()
+    return out
+
+
+def _window_ok(run, f32=False) -> bool:
+    """8/8 at 16 tokens, drained, the paged kernel and the era scan
+    launched, and every call on ``choose_variant``'s pick: bf16 decode on
+    the split walk and mixed and prefill on the tile (``_counts_ok``), f32
+    on the f32 split walk and the f32 tile."""
+    kinds = tuple(k for k in ("decode", "mixed", "prefill")
+                  if k in run["by_kind"])
+    n = run["launches"]
+    variants_ok = (not run["wrong"] and "decode" in kinds
+                   and (n["cuda_core"] > 0 if f32 else
+                        _counts_ok(run, kinds)))
+    return (run["stats"]["completed"] == 8 and run["drained"]
+            and all(len(t) == 16 for t in run["tokens"])
+            and n["paged_attention_chunk"] > 0 and n["era_scan_interval"] > 0
+            and variants_ok)
+
+
+def _window_summary(run) -> str:
+    st = run["stats"]
+    return (f"completed={st['completed']} drained={run['drained']} "
+            f"steps={st['steps']} mixed_steps={st['mixed_steps']} "
+            f"launches={run['launches']} calls by plan kind and variant="
+            f"{run['by_kind']} calls off their variant={run['wrong'][:4]}")
+
+
+def serve_policies(cfg, params, dev, mixed_tokens) -> None:
+    """Phase 3d: the scheduler's other paths on phase 3's weights and
+    engine (WFE, ``use_kernel=True``, blocks of 16, max_batch 8, chunk
+    256, bf16 pages).  (1) ``bucket_policy="pow2"`` on the 8-request
+    window: its tokens must equal 3c's WFE run (``maxlen`` buckets).  (2)
+    ``sched_policy="prefill_first"`` on the window: complete and drained,
+    each call on its variant; its token match against 3c's ``mixed`` run
+    is printed, not held (batch composition moves bf16 tokens).  (3) At 8
+    layers in f32, ``prefill_first`` against ``mixed`` on the window,
+    token for token.  (4) SLO classes under pressure: the 32-request trace
+    with every third request in the batch class on a 256-block pool (a
+    request needs up to 68): all complete at full length, interactive
+    requesters shed batch ones and a batch requester sheds no interactive
+    one, and the pool drains.  Each run prints its TTFT and TPOT p50/p95
+    (by class for the SLO run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import era_scan as es
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+
+    pow2 = policy_window(cfg, params, dev, bucket_policy="pow2")
+    phase("3d pow2 buckets, 8 requests", _window_ok(pow2)
+          and pow2["tokens"] == mixed_tokens,
+          f"tokens == 3c's maxlen run {pow2['tokens'] == mixed_tokens}; "
+          + _window_summary(pow2))
+    print(f"  3d pow2: {latency(pow2['reqs'])}", flush=True)
+
+    first = policy_window(cfg, params, dev, sched_policy="prefill_first")
+    phase("3d prefill_first, bf16, 8 requests", _window_ok(first)
+          and first["stats"]["mixed_steps"] == 0, _window_summary(first))
+    print(f"  3d prefill_first bf16: greedy token match against 3c's mixed "
+          f"run {token_match(mixed_tokens, first['tokens'])} (not held: "
+          f"batch composition moves bf16 tokens); {latency(first['reqs'])}",
+          flush=True)
+    del pow2, first
+
+    cfg8 = get_config("stablelm-3b").scaled(n_layers=8, dtype=torch.float32)
+    params8 = init_params(cfg8, torch.Generator(device=dev).manual_seed(SEED),
+                          device=dev)
+    runs = {policy: policy_window(cfg8, params8, dev, sched_policy=policy)
+            for policy in ("mixed", "prefill_first")}
+    del params8
+    free_device_memory()
+    same = runs["mixed"]["tokens"] == runs["prefill_first"]["tokens"]
+    phase("3d prefill_first against mixed, f32, 8 layers, 8 requests",
+          same and all(_window_ok(r, f32=True) for r in runs.values()),
+          f"tokens equal {same} "
+          f"({token_match(runs['mixed']['tokens'], runs['prefill_first']['tokens'])}); "
+          + "; ".join(f"{k}: {_window_summary(r)}" for k, r in runs.items()))
+    for policy, run in runs.items():
+        print(f"  3d {policy} f32 8 layers: {latency(run['reqs'])}",
+              flush=True)
+    del runs
+
+    n_blocks, new = 256, 64
+    engine = ServeEngine(cfg, params, n_blocks=n_blocks, block_size=16,
+                         max_batch=8, chunk_size=256, use_kernel=True,
+                         device=dev)
+    victims = watch_victims(engine.sched)
+    tid = engine.pool.register_thread()
+    prompts = trace(32, 64, 1024, cfg.vocab_size)
+    for ctr in (pa.LAUNCHES, es.LAUNCHES):
+        ctr.n = 0
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, max_new_tokens=new,
+                          slo="batch" if i % 3 == 0 else "interactive")
+            for i, p in enumerate(prompts)]
+    stats = engine.run(tid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_attention_chunk": pa.LAUNCHES.n,
+                "era_scan_interval": es.LAUNCHES.n}
+    drained = (engine.pool.unreclaimed() == 0
+               and engine.pool.free_blocks == n_blocks)
+    ok = (stats["completed"] == 32 and drained
+          and all(len(r.generated) == new for r in reqs)
+          and stats["batch_evictions"] > 0
+          and ("interactive", "batch") in victims
+          and ("batch", "interactive") not in victims
+          and all(n > 0 for n in launches.values()))
+    shed = {pair: victims.count(pair) for pair in sorted(set(victims))}
+    phase("3d SLO classes on a 256-block pool, 32 requests", ok,
+          f"completed={stats['completed']} drained={drained} evictions="
+          f"{stats['evictions']} batch_evictions={stats['batch_evictions']} "
+          f"preemptions by (requester, victim) class={shed} steps="
+          f"{stats['steps']} launches={launches}")
+    for slo in ("interactive", "batch"):
+        print(f"  3d SLO run, {slo}: "
+              f"{latency([r for r in reqs if r.slo == slo])}", flush=True)
+    gen = sum(len(r.generated) for r in reqs)
+    print(f"  3d SLO run: {wall:.3f} s wall, {gen / wall:.2f} output "
+          f"tokens/s (host clock) on {gpu_name_and_limit()}", flush=True)
+    del engine
+    free_device_memory()
 
 
 def serve_trace(cfg, params, dev, kv_dtype):
@@ -1103,6 +1290,8 @@ def serve_trace(cfg, params, dev, kv_dtype):
           f"{kv_bytes / 2**30:.3f} GiB = "
           f"{kv_bytes / ((n_blocks + 1) * bs):.0f} B/token (scales included) "
           f"on {gpu_name_and_limit()}", flush=True)
+    print(f"  serve ({label} pages), 32 requests: {latency(reqs)}",
+          flush=True)
     window = profile_window(engine, tid, cfg)
     generated = [r.generated for r in reqs]
     del engine
@@ -2463,11 +2652,75 @@ def zoo_bf16(arch, dev) -> dict:
     return out
 
 
+def f32_products(dev) -> None:
+    """``layers.matmul(x, w, dtype=float32)`` on bf16 activations at
+    recurrentgemma-2b's gate width (x (4, 64, 2560), w (2560, 2560) x
+    0.02, seeded): a bf16 GEMM with f32 output.  Against the exact (f64)
+    product of the same bf16 operands it must be within f32 accumulation
+    order, 2 sqrt(K) u of the largest |product| (u = 2**-24: 6.0e-6 at K
+    2560), as the f32 product of the upcast operands on the CPU (the
+    reference's ``preferred_element_type=f32`` dot) is; both errors are
+    printed beside the bf16-rounded product's.  Its gradients against the
+    CPU's within one bf16 step (2**-7) of their largest magnitude, and the
+    MoE expert product's batched form (K 256) within the same order.
+    Prints the GEMM's time beside the bf16-output one's (CUDA events)."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn(4, 64, 2560, generator=gen).to(torch.bfloat16)
+    w = torch.randn(2560, 2560, generator=gen) * 0.02
+    g = torch.randn(4, 64, 2560, generator=gen)
+    xd, wd = x.to(dev).requires_grad_(), w.to(dev).requires_grad_()
+    got = layers.matmul(xd, wd, dtype=torch.float32)
+    got.backward(g.to(dev))
+    wb = w.to(torch.bfloat16)
+    exact = x.double() @ wb.double()
+    scale = exact.abs().max().item()
+
+    def order(k):  # f32 accumulation order over k terms, of the largest
+        return 2 * math.sqrt(k) * 2.0 ** -24
+
+    def err(a, want=exact):
+        return (a.detach().cpu().double() - want).abs().max().item() / \
+            want.abs().max().item()
+
+    card, cpu = err(got), err(x.float() @ wb.float())
+    rounded = err(torch.matmul(x, wb))
+    xc, wc = x.clone().requires_grad_(), w.clone().requires_grad_()
+    layers.matmul(xc, wc, dtype=torch.float32).backward(g)
+
+    def rel(a, b):  # largest |a - b| over the largest |b|
+        a, b = a.float().cpu(), b.float().cpu()
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    # on the card the f32 cotangent enters the bf16 GEMM rounded (the
+    # CPU's product keeps it f32)
+    dx_rel, dw_rel = rel(xd.grad, xc.grad), rel(wd.grad, wc.grad)
+    rows = torch.randn(4, 96, 256, generator=gen).to(torch.bfloat16)
+    ew = (torch.randn(4, 256, 512, generator=gen) * 0.05).to(torch.bfloat16)
+    bmm = err(layers.product(rows.to(dev), ew.to(dev), batched=True),
+              rows.double() @ ew.double())
+    ok = (got.dtype == torch.float32 and card <= order(2560)
+          and bmm <= order(256) and max(dx_rel, dw_rel) <= 2 ** -7)
+    a, b = x.to(dev).reshape(-1, 2560), wb.to(dev)
+    f32_ms = time_ms(lambda: torch.mm(a, b, out_dtype=torch.float32))
+    bf16_ms = time_ms(lambda: torch.mm(a, b))
+    phase("7 f32-output products on the card", ok,
+          f"matmul against the exact product, of max |product| {scale:.3f}: "
+          f"card {card:.2e}, CPU f32 {cpu:.2e}, rounded to bf16 {rounded:.2e}"
+          f" (limit {order(2560):.2e}); batched {bmm:.2e} (limit "
+          f"{order(256):.2e}); gradients against the CPU's, relative to "
+          f"their largest: dx {dx_rel:.2e}, dw {dw_rel:.2e} (limit 2**-7); "
+          f"GEMM (256 x 2560 x 2560) f32 output {f32_ms:.4f} ms against bf16"
+          f" output {bf16_ms:.4f} ms (eager) on {gpu_name_and_limit()}")
+
+
 def zoo_phase(dev) -> dict:
     """Phase 7, one arch resident at a time: the f32 consistency run, then
     the bf16 run at ZOO_DEPTH.  Returns the bf16 runs' counts by arch,
     with the f32 run's f32-tile flash launches under ``f32_cuda_core``."""
     out = {}
+    guarded("7 f32-output products", f32_products, dev)
     for arch in ZOO_DEPTH:
         t0 = time.perf_counter()
         f32 = guarded(f"7 {arch} f32", zoo_f32, arch, dev)

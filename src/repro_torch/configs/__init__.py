@@ -11,6 +11,8 @@ FFNs); they refuse the others with a message
 from __future__ import annotations
 
 import importlib
+from typing import Dict
+
 import torch
 
 from repro_torch.models.common import ArchConfig
@@ -49,10 +51,15 @@ def get_smoke_config(name: str) -> ArchConfig:
     return _mod(name).smoke_config().scaled(dtype=torch.float32)
 
 
+def all_configs() -> Dict[str, ArchConfig]:
+    return {n: get_config(n) for n in ALL_ARCHS}
+
+
 __all__ = [
     "ALL_ARCHS",
     "SHAPES",
     "ShapeSpec",
+    "all_configs",
     "cell_is_runnable",
     "get_config",
     "get_smoke_config",

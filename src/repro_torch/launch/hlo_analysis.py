@@ -12,8 +12,12 @@ one device executes:
    runs each op on its own, so this exceeds the reference's figure, which
    charges each fused XLA instruction once;
 3. collectives: every ``_c10d_functional`` collective, per kind its count,
-   its bytes (the larger of input and result) and the ring-model wire
-   bytes of its group (``roofline.wire_bytes``);
+   its bytes (the larger of input and result), the ring-model wire bytes
+   of its group (``roofline.wire_bytes``), and the count of those that
+   reduce a product's output by element type (``product_dtypes``, keyed
+   by HLO's names ``f32``, ``bf16``, ...: the collective's input storage
+   was made by a matmul, as the reference's ``all-reduce(%dot)``'s
+   operand is a dot);
 4. memory: the storages live at once, arguments included, from a tracker
    that adds a storage at the op that creates it and drops it when it is
    freed.
@@ -61,6 +65,9 @@ _COLLECTIVE_OPS = {
 }
 
 
+#: the ops whose output a product's all-reduce sums
+_PRODUCTS = (torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
+             torch.ops.aten.baddbmm)
 _FAKE = torch._C._TorchDispatchModeKey.FAKE
 #: allocations: they move no bytes
 _ALLOCS = (torch.ops.aten.empty, torch.ops.aten.empty_like,
@@ -82,6 +89,15 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return to_local() if to_local is not None else t
 
 
+def hlo_dtype(dtype: torch.dtype) -> str:
+    """HLO's name of an element type (``f32``, ``bf16``, ``s32``, ...)."""
+    if dtype == torch.bool:
+        return "pred"
+    kind = ("bf" if dtype == torch.bfloat16 else "f" if dtype.is_floating_point
+            else "s" if dtype.is_signed else "u")
+    return f"{kind}{dtype.itemsize * 8}"
+
+
 def _group_size(args) -> int:
     """Size of the process group a functional collective names (its last
     string argument; a reduce op's name comes before it)."""
@@ -92,25 +108,32 @@ def _group_size(args) -> int:
 
 
 class _LiveStorages:
-    """Bytes of the distinct storages alive at once, and their peak."""
+    """Bytes of the distinct storages alive at once, and their peak; the op
+    that made each."""
 
     def __init__(self):
         self.live: Dict[int, int] = {}
+        self.maker: Dict[int, Any] = {}
         self.now = 0
         self.peak = 0
 
-    def add(self, t: torch.Tensor) -> None:
+    def add(self, t: torch.Tensor, maker=None) -> None:
         st = t.untyped_storage()
         key = st._cdata
         if key in self.live:
             return
         self.live[key] = st.nbytes()
+        self.maker[key] = maker
         self.now += self.live[key]
         self.peak = max(self.peak, self.now)
         weakref.finalize(st, self._drop, key)
 
+    def made_by(self, t: torch.Tensor):
+        return self.maker.get(t.untyped_storage()._cdata)
+
     def _drop(self, key: int) -> None:
         self.now -= self.live.pop(key, 0)
+        self.maker.pop(key, None)
 
 
 class _Counter(TorchDispatchMode):
@@ -124,7 +147,7 @@ class _Counter(TorchDispatchMode):
         self.flops = 0
         self.bytes = 0
         self.collectives = {k: {"count": 0, "result_bytes": 0,
-                                "wire_bytes": 0.0}
+                                "wire_bytes": 0.0, "product_dtypes": {}}
                             for k in COLLECTIVE_KINDS}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -140,10 +163,15 @@ class _Counter(TorchDispatchMode):
         out = func(*args, **kwargs)
         outs = _tensors(out)
         for t in outs:
-            self.storages.add(t)
+            self.storages.add(t, func.overloadpacket)
         n = self.trips.factor()
         formula = self.formulas.get(func.overloadpacket)
         if formula is not None:
+            if func.overloadpacket in _PRODUCTS and \
+                    func._overloadname == "dtype":
+                # a product with another output dtype: its formula takes
+                # the operands alone
+                args, kwargs = args[:2], {}
             self.flops += n * formula(*args, **kwargs, out_val=out)
         ins = _tensors((args, kwargs))
         if func.namespace == "_c10d_functional":
@@ -155,6 +183,9 @@ class _Counter(TorchDispatchMode):
                 rec["result_bytes"] += n * size
                 rec["wire_bytes"] += n * wire_bytes(kind, size,
                                                     _group_size(args))
+                if self.storages.made_by(ins[0]) in _PRODUCTS:
+                    per, name = rec["product_dtypes"], hlo_dtype(outs[0].dtype)
+                    per[name] = per.get(name, 0) + n
         elif not func.is_view and func.overloadpacket not in _ALLOCS:
             self.bytes += n * (sum(map(_nbytes, ins))
                                + sum(map(_nbytes, outs)))
@@ -174,7 +205,8 @@ def argument_bytes(*args: Any) -> int:
 def analyze(step: Callable, *args: Any) -> Dict[str, Any]:
     """Run ``step(*args)`` once and count one device's work (module
     docstring).  Returns ``flops_per_device``, ``bytes_per_device``,
-    ``collectives`` (per kind ``count``, ``result_bytes``, ``wire_bytes``)
+    ``collectives`` (per kind ``count``, ``result_bytes``, ``wire_bytes``,
+    ``product_dtypes``)
     and ``memory`` (``argument_bytes``, ``peak_bytes`` and, under the
     reference's name, ``live_bytes_per_device``: the peak of the storages
     live at once, arguments included)."""

@@ -1,31 +1,210 @@
 """Shared primitive layers: norms, embeddings, MLPs, RoPE, tree helpers.
 
 Plain functions over tensors and a params dict, as in ``repro.models.layers``.
-Matmuls cast the weight to the activation dtype; on the card a bf16 product
-accumulates in f32 inside cuBLAS and rounds its output to bf16.
+Matmuls cast the weight to the activation dtype and follow the reference's
+rule for the product's precision (:func:`matmul`).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.sharding.axes import is_dtensor, logical_constraint, rewrap
 
+from . import perf_flags
+
 
 def matmul(x: torch.Tensor, w: torch.Tensor, dtype=None) -> torch.Tensor:
     """x @ w; contracts the last dim of x with dim 0 of w.  The output is
-    cast to ``dtype`` (default: the activation dtype)."""
+    cast to ``dtype`` (default: the activation dtype).
+
+    As the reference's dot with ``preferred_element_type=f32``, the
+    product is an f32 product of x and the weight cast to x's dtype, cast
+    once to the output dtype: an explicit ``dtype`` other than x's gets
+    the unrounded product.  On a mesh of more than one device a bf16 (or
+    f16) product runs shard by shard (:func:`product`), and the partial
+    sums of a sharded contraction, forward and backward, are summed in
+    f32 and rounded once; under ``perf_flags.bf16_collective_matmul`` and
+    with no explicit ``dtype`` each shard's product is rounded to the
+    activation dtype and the partials are summed in it, as the reference's
+    toggle does.  Off a mesh a call with no explicit ``dtype`` is a plain
+    product: one rounding of an f32-accumulated product either way."""
     out_dtype = dtype or x.dtype
-    return torch.matmul(x, w.to(x.dtype)).to(out_dtype)
+    w = w.to(x.dtype)
+    if out_dtype != x.dtype:
+        return product(x, w, out_dtype)
+    if x.dtype == torch.float32 or not _on_mesh(x, w):
+        return torch.matmul(x, w)
+    bf16 = perf_flags.FLAGS["bf16_collective_matmul"] and dtype is None
+    return product(x, w, out_dtype, acc=x.dtype if bf16 else None)
 
 
-def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w as an f32 product: both operands are read as f32 after the
-    weight is cast to the activation dtype, so bf16 inputs enter exactly and
-    nothing rounds to bf16 (``repro``'s ``matmul(..., dtype=f32)`` with its
-    f32 accumulation).  For small weights (the MoE router)."""
-    return torch.matmul(x.float(), w.to(x.dtype).float())
+def _on_mesh(*xs) -> bool:
+    return any(is_dtensor(x) and x.device_mesh.size() > 1 for x in xs)
+
+
+def _gemm(a: torch.Tensor, b: torch.Tensor, acc: torch.dtype):
+    """a @ b (2-D, or batched 3-D) on local tensors, its output in
+    ``acc``.  For an f32 output of bf16/f16 operands: on the card (and on
+    meta tensors, which stand for it) a GEMM with f32 output, an f32
+    operand (a cotangent) entering it rounded to the other's dtype, as the
+    port's bf16 GEMMs always took it (an f32 GEMM of the upcast operands
+    runs at the f32 rate, 1/15 of bf16's); elsewhere the f32 product of
+    the upcast operands."""
+    op = torch.bmm if a.ndim == 3 else torch.mm
+    low = next((t.dtype for t in (a, b) if t.dtype != torch.float32), None)
+    if acc != torch.float32:
+        return op(a.to(acc), b.to(acc))
+    if low is not None and a.device.type in ("cuda", "meta"):
+        return op(a.to(low), b.to(low), out_dtype=torch.float32)
+    return op(a.float(), b.float())
+
+
+# The local products of :func:`product`, forward and gradients, each with
+# the roles of its operands' dims: ("k", i) the i-th contracted dim, ("o", j)
+# the output's dim j (a dim both operands carry, the experts', has the same
+# role in each).
+def _mm(a, w, acc):
+    """a (..., K) @ w (K, N) -> (..., N)."""
+    return _gemm(a.reshape(-1, a.shape[-1]), w, acc).reshape(
+        *a.shape[:-1], w.shape[1])
+
+
+def _mm_dx(g, w, acc):
+    """g (..., N) @ w.T for w (K, N) -> (..., K)."""
+    return _gemm(g.reshape(-1, g.shape[-1]), w.T, acc).reshape(
+        *g.shape[:-1], w.shape[0])
+
+
+def _mm_dw(a, g, acc):
+    """a (..., K), g (..., N) -> a^T g (K, N), summed over every row."""
+    return _gemm(a.reshape(-1, a.shape[-1]).T, g.reshape(-1, g.shape[-1]),
+                 acc)
+
+
+def _mm_products(nd):
+    """(local fn, (a's roles, b's roles)) of the forward, dx and dw of a
+    product whose activation has ``nd`` dims."""
+    rows = tuple(("o", i) for i in range(nd - 1))
+    summed = tuple(("k", i) for i in range(nd - 1))
+    return ((_mm, (rows + (("k", 0),), (("k", 0), ("o", nd - 1)))),
+            (_mm_dx, (rows + (("k", 0),), (("o", nd - 1), ("k", 0)))),
+            (_mm_dw, (summed + (("o", 0),), summed + (("o", 1),))))
+
+
+def _bmm(a, b, acc):
+    """a (E, M, K) @ b (E, K, N) -> (E, M, N)."""
+    return _gemm(a, b, acc)
+
+
+def _bmm_dx(g, b, acc):
+    return _gemm(g, b.transpose(1, 2), acc)
+
+
+def _bmm_dw(a, g, acc):
+    return _gemm(a.transpose(1, 2), g, acc)
+
+
+_BMM_PRODUCTS = ((_bmm, ((("o", 0), ("o", 1), ("k", 0)),
+                         (("o", 0), ("k", 0), ("o", 2)))),
+                 (_bmm_dx, ((("o", 0), ("o", 1), ("k", 0)),
+                            (("o", 0), ("o", 2), ("k", 0)))),
+                 (_bmm_dw, ((("o", 0), ("k", 0), ("o", 1)),
+                            (("o", 0), ("k", 0), ("o", 2)))))
+
+
+def _role(placement, roles):
+    """The role of the dim a placement shards, "p" for ``Partial``, else
+    None."""
+    if placement.is_shard():
+        return roles[placement.dim]
+    return "p" if placement.is_partial() else None
+
+
+def _sharded(local, roles, a, b, acc, like=None):
+    """``local(a, b, acc)`` on plain tensors, or shard by shard on DTensors
+    with its partial sums reduced in ``acc``.  Per mesh dim the operands
+    take the layout of the role a's placement shards (else b's): a
+    contracted role shards both operands along it and leaves the output
+    ``Partial``, an output role shards the output, and a ``Partial``
+    operand meets a replicated one; the operands are redistributed to that
+    layout.  Each rank runs ``local`` on its shards (``local_map``; DTensor
+    has no rule for a product with another output dtype), then each
+    ``Partial`` mesh dim is reduced to ``like``'s placement there (a
+    gradient to its operand's layout: a reduce-scatter where the operand
+    is sharded, as an FSDP weight's is over "data"), else all-reduced to
+    ``Replicate()``."""
+    if not (is_dtensor(a) or is_dtensor(b)):
+        return local(a, b, acc)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = (a if is_dtensor(a) else b).device_mesh
+    a, b = (t if is_dtensor(t) else rewrap(t, mesh) for t in (a, b))
+    ra, rb = roles
+    pa, pb, po = [], [], []
+    for qa, qb in zip(a.placements, b.placements):
+        take = _role(qa, ra) or _role(qb, rb)
+        if take == "p":
+            pa.append(qa if qa.is_partial() else Replicate())
+            pb.append(Replicate() if qa.is_partial() else qb)
+            po.append(Partial((qa if qa.is_partial() else qb).reduce_op))
+            continue
+        pa.append(Shard(ra.index(take)) if take in ra else Replicate())
+        pb.append(Shard(rb.index(take)) if take in rb else Replicate())
+        po.append(Replicate() if take is None else Partial()
+                  if take[0] == "k" else Shard(take[1]))
+    out = local_map(functools.partial(local, acc=acc),
+                    out_placements=(tuple(po),),
+                    in_placements=(tuple(pa), tuple(pb)), device_mesh=mesh,
+                    redistribute_inputs=True)(a, b)
+    if any(p.is_partial() for p in po):
+        keep = (like.placements if is_dtensor(like) and like.ndim == out.ndim
+                else [Replicate()] * len(po))
+        out = out.redistribute(mesh, [
+            (k if k.is_shard() else Replicate()) if p.is_partial() else p
+            for p, k in zip(po, keep)])
+    return out
+
+
+class _Product(torch.autograd.Function):
+    """x @ w, or batched x (E, M, K) @ w (E, K, N), with its output and its
+    partial sums in ``acc``, cast to ``out_dtype``; the gradients are
+    products of the same kind, each cast once to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, out_dtype, acc, batched):
+        ctx.save_for_backward(x, w)
+        ctx.acc = acc
+        ctx.products = _BMM_PRODUCTS if batched else _mm_products(x.ndim)
+        return _sharded(*ctx.products[0], x, w, acc).to(out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        _, dx_of, dw_of = ctx.products
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _sharded(*dx_of, g, w, ctx.acc, like=x).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _sharded(*dw_of, x, g, ctx.acc, like=w).to(w.dtype)
+        return dx, dw, None, None, None
+
+
+def product(x: torch.Tensor, w: torch.Tensor, out_dtype=None, acc=None,
+            batched: bool = False) -> torch.Tensor:
+    """x @ w (``batched``: x (E, M, K) @ w (E, K, N)) of operands of one
+    dtype, its output and partial sums in ``acc`` (default f32: bf16
+    operands enter exactly, accumulate in f32 and nothing rounds before
+    the cast), cast to ``out_dtype`` (default: ``acc``).  On DTensors it
+    runs shard by shard and reduces its partial sums in ``acc``
+    (:func:`_sharded`).  Differentiable: the gradients follow the same
+    rule."""
+    acc = acc or torch.float32
+    return _Product.apply(x, w, out_dtype or acc, acc, batched)
 
 
 def index_tree(tree, i):

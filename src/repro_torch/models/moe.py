@@ -11,7 +11,9 @@ The three expert products are f32 products of operands in the activation
 dtype, as with the reference's default ``preferred_element_type=f32``
 (:154-162): silu runs on the unrounded gate and up products, their gated
 product is rounded to the activation dtype before the down projection,
-and the down projection once after it.
+and the down projection once after it.  Under
+``perf_flags.bf16_collective_matmul`` each product is rounded to the
+activation dtype instead, as the reference's einsums then are.
 
 Dispatch runs in G groups of the batch, G the data-parallel degree of the
 installed mesh (``_dispatch_groups``), as in the reference; without a mesh
@@ -36,7 +38,8 @@ import torch.nn.functional as F
 
 from repro_torch.sharding.axes import logical_constraint, per_rows
 
-from .layers import matmul, matmul_f32
+from . import perf_flags
+from .layers import matmul, product
 
 MOE_AXES = {
     "router": ("embed", "expert"),
@@ -65,7 +68,7 @@ def capacity_for(cfg, tokens: int, capacity: Optional[int] = None) -> int:
 def route(cfg, p, xf: torch.Tensor):
     """Router of tokens xf (..., T, d): (f32 logits (..., T, E),
     renormalized top-k weights (..., T, k), top-k expert ids (..., T, k))."""
-    logits = matmul_f32(xf, p["router"])
+    logits = matmul(xf, p["router"], dtype=torch.float32)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, cfg.top_k, dim=-1)
     return logits, top_p / top_p.sum(-1, keepdim=True), top_e
@@ -90,23 +93,20 @@ def assign(top_e: torch.Tensor, n_experts: int, capacity: int):
     return order, slot, keep
 
 
-def bmm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """a @ w batched, an f32 product of a and w cast to a's dtype: bf16
-    operands enter exactly and accumulate in f32, and the output is not
-    rounded (on the card a bf16 GEMM with f32 output)."""
-    w = w.to(a.dtype)
-    if a.is_cuda and a.dtype != torch.float32:
-        return torch.bmm(a, w, out_dtype=torch.float32)
-    return torch.bmm(a.float(), w.float())
-
-
-def _experts_f32(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _experts(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Each group's per-expert rows through its expert: buf (G, E, C, in)
-    and w (E, in, out) -> (G, E, C, out), f32 products (``bmm_f32`` over
-    the experts, the groups' rows side by side)."""
+    and w (E, in, out) -> (G, E, C, out), one batched product over the
+    experts (the groups' rows side by side).  An f32 product
+    (``layers.product``: on the card a bf16 GEMM with f32 output, its
+    gradients' partial sums reduced in f32), as with the reference's
+    default ``preferred_element_type=f32``; under
+    ``perf_flags.bf16_collective_matmul`` a product in the activation
+    dtype, partial sums too, as the reference's einsums then are."""
     g, e, c, _ = buf.shape
     rows = buf.transpose(0, 1).reshape(e, g * c, buf.shape[3])
-    out = bmm_f32(rows, w)
+    bf16 = perf_flags.FLAGS["bf16_collective_matmul"]
+    out = product(rows, w.to(buf.dtype), acc=buf.dtype if bf16 else None,
+                  batched=True)
     return out.reshape(e, g, c, out.shape[2]).transpose(0, 1)
 
 
@@ -191,10 +191,10 @@ def apply_moe(cfg, p, x: torch.Tensor,
     # batched expert FFN (swiglu): f32 products, the gated product and the
     # down projection rounded to the activation dtype
     wdt = x.dtype
-    h = (F.silu(_experts_f32(buf, p["wi_gate"]))
-         * _experts_f32(buf, p["wi_up"])).to(wdt)
+    h = (F.silu(_experts(buf, p["wi_gate"]))
+         * _experts(buf, p["wi_up"])).to(wdt)
     h = logical_constraint(h, ("batch", "expert", None, "expert_mlp"))
-    out_buf = _experts_f32(h, p["wo"]).to(wdt)
+    out_buf = _experts(h, p["wo"]).to(wdt)
     out_buf = logical_constraint(out_buf, ("batch", "expert", None, "embed"))
 
     # combine: back to data-local, then each rank its own groups

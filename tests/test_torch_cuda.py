@@ -1416,3 +1416,67 @@ def test_merged_era_on_the_card(nccl_mesh):
     got = merged_era(t)
     assert got.is_cuda and got.tolist() == [41] and t.tolist() == [41]
     assert merged_era(7) == 7
+
+
+def _f32_order(k):
+    """The spread of an f32 sum of k terms in another order, of the
+    largest |value|: 2 sqrt(k) u, u = 2**-24."""
+    return 2 * math.sqrt(k) * 2.0 ** -24
+
+
+def _exact_err(got, want):
+    return ((got.detach().cpu().double() - want).abs().max()
+            / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("shape_x,shape_w", [((4, 64, 2560), (2560, 2560)),
+                                             ((33, 96), (96, 40))])
+def test_matmul_f32_output_on_the_card(dev, shape_x, shape_w):
+    """``layers.matmul(x, w, dtype=float32)`` on bf16 activations is a bf16
+    GEMM with f32 output: against the exact (f64) product of the same
+    operands within f32 accumulation order (``_f32_order`` of K), as the
+    f32 product of the upcast operands is (what the reference's
+    ``preferred_element_type=f32`` dot computes, held to it on the CPU by
+    ``test_torch_matmul_precision.py``), at recurrentgemma-2b's gate width
+    too; a product rounded to bf16 is far outside it.  Its gradients run
+    (the GEMM has no autograd of its own) within one bf16 step of the
+    CPU's largest magnitude."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(*shape_x, generator=gen).to(torch.bfloat16)
+    w = torch.randn(*shape_w, generator=gen) * 0.02
+    g = torch.randn(*shape_x[:-1], shape_w[1], generator=gen)
+    xd, wd = x.to(dev).requires_grad_(), w.to(dev).requires_grad_()
+    got = layers.matmul(xd, wd, dtype=torch.float32)
+    assert got.dtype == torch.float32
+    exact = x.double() @ w.to(torch.bfloat16).double()
+    limit = _f32_order(shape_w[0])
+    assert _exact_err(got, exact) <= limit
+    assert _exact_err(torch.matmul(x, w.to(torch.bfloat16)), exact) > \
+        10 * limit
+    got.backward(g.to(dev))
+    xc, wc = x.clone().requires_grad_(), w.clone().requires_grad_()
+    layers.matmul(xc, wc, dtype=torch.float32).backward(g)
+    for a, b in ((xd.grad, xc.grad), (wd.grad, wc.grad)):
+        assert a.dtype == b.dtype
+        assert (a.cpu().float() - b.float()).abs().max() <= \
+            2 ** -7 * b.float().abs().max()
+
+
+def test_moe_expert_product_on_the_card(dev):
+    """The MoE expert product's batched f32 product (``layers.product``,
+    a bf16 ``torch.bmm`` with f32 output) within f32 accumulation order of
+    the exact product, with gradients."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator().manual_seed(1)
+    a = torch.randn(4, 96, 256, generator=gen).to(torch.bfloat16)
+    b = (torch.randn(4, 256, 512, generator=gen) * 0.05).to(torch.bfloat16)
+    ad, bd = a.to(dev).requires_grad_(), b.to(dev).requires_grad_()
+    got = layers.product(ad, bd, batched=True)
+    assert got.dtype == torch.float32
+    assert _exact_err(got, a.double() @ b.double()) <= _f32_order(256)
+    got.sum().backward()
+    assert ad.grad.dtype == bd.grad.dtype == torch.bfloat16
+    assert torch.isfinite(ad.grad).all() and torch.isfinite(bd.grad).all()

@@ -15,7 +15,8 @@ hlo_analysis,roofline,report}``), held against ``repro.launch``.
   host devices (its own subprocess) for all ten archs x three kinds; a
   cell with its weights sharded on "model" counts half the 1x1 FLOPs (a
   count of the global ops would not); the train cell on (2, 2) counts
-  collectives;
+  collectives; a bf16 train cell on (1, 2) moves its products' partial
+  sums in f32, in bf16 under ``bf16_collective_matmul``;
 * the CLI: a resumable ``--out`` that skips done cells, ``long_500k``
   skipped with the reference's reason, and the report's tables.
 
@@ -94,6 +95,19 @@ _PORT = textwrap.dedent("""
     with axis_rules(meshes[(2, 2)]):
         c = cell("stablelm-3b", "train_4k", meshes[(2, 2)])
         res["train22"] = analyze(c.step, *c.args)
+    # bf16 train cells, tensor-parallel only, with each flag setting
+    from repro_torch.models.perf_flags import set_flags
+    for arch in ("stablelm-3b", "mixtral-8x7b"):
+        bf16 = dataclasses.replace(get_smoke_config(arch),
+                                   dtype=torch.bfloat16)
+        for flag in (False, True):
+            prev = set_flags(bf16_collective_matmul=flag)
+            with axis_rules(meshes[(1, 2)]):
+                c = build_cell(bf16, dataclasses.replace(
+                    SHAPES["train_4k"], seq_len=32, global_batch=4),
+                    meshes[(1, 2)])
+                res[f"tp_bf16:{arch}:{flag}"] = analyze(c.step, *c.args)
+            set_flags(**prev)
     json.dump(res, open(sys.argv[1], "w"))
     print("PORT_OK")
 """)
@@ -302,6 +316,28 @@ def test_train_cell_on_2x2_counts_collectives(cells):
     # both split in two)
     assert cells["port"]["train22"]["flops_per_device"] == \
         cells["port"]["one"]["train_4k"]["flops_per_device"] / 4
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "mixtral-8x7b"])
+def test_tensor_parallel_all_reduce_dtype_follows_the_flag(cells, arch):
+    """A bf16 train cell on a (1, 2) mesh (mixtral's expert products are
+    batched products with an f32 output, counted on meta tensors): the
+    all-reduces of the products' partial sums move f32 by default and bf16
+    under ``bf16_collective_matmul`` (the unembedding's explicit f32
+    product stays f32), so the flag cuts their wire bytes; the FLOPs do
+    not move."""
+    off = cells["port"][f"tp_bf16:{arch}:False"]
+    on = cells["port"][f"tp_bf16:{arch}:True"]
+    assert off["flops_per_device"] == on["flops_per_device"] > 0
+    off, on = off["collectives"]["all-reduce"], on["collectives"][
+        "all-reduce"]
+    assert set(off["product_dtypes"]) == {"f32"}
+    assert set(on["product_dtypes"]) == {"bf16", "f32"}
+    assert sum(off["product_dtypes"].values()) == sum(
+        on["product_dtypes"].values())
+    assert on["product_dtypes"]["bf16"] > on["product_dtypes"]["f32"]
+    assert on["wire_bytes"] < off["wire_bytes"]
+    assert off["count"] == on["count"]
 
 
 # ============================================================ the CLI
