@@ -81,6 +81,21 @@ Phases, each printing its own line; any failure exits non-zero:
       --selftest`` and ``python -m repro_torch.launch.serve --requests 8``
       with ``--shards 2 --workers 2``, each in a process of its own at the
       reference's smoke size, on CUDA by default.
+   4f shared KV prefixes on the same weights and engine (``shared_trace``:
+      4 seeded system prompts of 512 tokens, 8 seeded tails of 64-256
+      tokens each, 32 requests round-robin over the prefixes, 16 new
+      tokens): (a) a 256-token tail chunk at position 512 over a table
+      whose first 32 entries alias a producer's pages is ``torch.equal``
+      to the same chunk over the request's own pages (logits and the tail
+      pages written), bf16 and int8 pages, each call on the tile; (b) one
+      worker on 1 shard, caching on and then off: 32/32 and drained each,
+      with caching on hits, every prompt token prefilled or served from
+      the cache and two chunks fewer per 512-token hit (tokens/s,
+      TTFT/TPOT and the token match printed); (c) 4 workers on 2 shards
+      with every freed page poisoned: 32/32, hits, finite logits, drained,
+      launches held to the calls' tally; (d) f32 at 8 layers, the first 4
+      requests on each of the first 2 prefixes, caching on and off: hits
+      and the same greedy tokens.  4f prints its seconds.
    4a' stablelm-3b at full width, 8 layers, in f32: the window with one
       worker on 1 shard, on 2 shards, and on 1 shard with the requests
       submitted in reverse order (the control); the greedy token matches
@@ -920,6 +935,26 @@ def trace(n_req: int, lo: int, hi: int, vocab: int, salt: int = 0):
     return [rng.integers(0, vocab, int(n)).tolist() for n in lens]
 
 
+#: 4f's shared prefixes: system prompts of 512 tokens (32 blocks of 16,
+#: exactly two 256-token chunks, so a hit's first chunk starts where an
+#: uncached request's third does), 4 of them, 8 tails each
+SHARED_PREFIX, SHARED_SYSTEMS, SHARED_TAILS = 512, 4, 8
+
+
+def shared_trace(vocab: int) -> list:
+    """4f's 32 prompts: ``SHARED_SYSTEMS`` system prompts, tokens from
+    (SEED, 100 + s), each followed by ``SHARED_TAILS`` tails of 64-256
+    tokens from (SEED, 99); request i is on system prompt i % 4
+    (round-robin)."""
+    systems = [np.random.default_rng([SEED, 100 + s]).integers(
+        0, vocab, SHARED_PREFIX).tolist() for s in range(SHARED_SYSTEMS)]
+    rng = np.random.default_rng([SEED, 99])
+    lens = rng.integers(64, 257, SHARED_SYSTEMS * SHARED_TAILS)
+    return [systems[i % SHARED_SYSTEMS]
+            + rng.integers(0, vocab, int(n)).tolist()
+            for i, n in enumerate(lens)]
+
+
 def serve_full_width(dev):
     """Phases 3 and 3b: the seeded trace on full-width stablelm-3b, with
     bf16 pages and then, on the same weights, int8 pages.  Returns each
@@ -1528,7 +1563,7 @@ def _device_busy(prof) -> tuple:
 
 
 def sharded_engine(cfg, params, dev, workers, *, shards=SHARDS,
-                   kv_dtype=None, faults=False):
+                   kv_dtype=None, faults=False, prefix_caching=True):
     """The phase 4 engine for ``workers`` workers, with the CLI's
     ``max_threads`` headroom (respawns take fresh tids when faults are
     armed)."""
@@ -1538,18 +1573,21 @@ def sharded_engine(cfg, params, dev, workers, *, shards=SHARDS,
                        max_batch=8, chunk_size=256, scheme="WFE",
                        use_kernel=True, kv_dtype=kv_dtype, n_shards=shards,
                        max_threads=max(16 if faults else 8, workers + 2),
-                       max_inflight=max(4, workers), device=dev)
+                       max_inflight=max(4, workers),
+                       prefix_caching=prefix_caching, device=dev)
 
 
 def serve_sharded(cfg, params, dev, prompts, new, *, workers,
                   shards=SHARDS, kv_dtype=None, spec=None, poison=False,
-                  check_finite=False, profile=False, scans=None) -> dict:
+                  check_finite=False, profile=False, scans=None,
+                  prefix_caching=True) -> dict:
     """Serve ``prompts`` (``new`` tokens each) on the phase 4 engine (on
     ``shards`` shards) with ``workers`` workers: ``engine.run`` for one
     worker without faults, else ``ServeRuntime``.  Launch counts are zeroed just before the run and read
     just after.  ``spec`` arms a ``FaultInjector``; ``poison`` wraps the
     frees (``poison_on_free``); ``profile`` runs under torch.profiler;
-    ``scans`` (a list) is cleared first and collects the run's era scans.
+    ``scans`` (a list) is cleared first and collects the run's era scans;
+    ``prefix_caching=False`` turns the engine's prefix cache off.
     Returns what the run produced (a copy of ``scans`` included); the
     engine is freed."""
     from torch.profiler import ProfilerActivity
@@ -1560,7 +1598,8 @@ def serve_sharded(cfg, params, dev, prompts, new, *, workers,
     from repro_torch.serve import FaultInjector, FaultSpec, ServeRuntime
 
     engine = sharded_engine(cfg, params, dev, workers, shards=shards,
-                            kv_dtype=kv_dtype, faults=spec is not None)
+                            kv_dtype=kv_dtype, faults=spec is not None,
+                            prefix_caching=prefix_caching)
     injector = None
     if spec is not None:
         injector = FaultInjector(FaultSpec.parse(spec))
@@ -1598,7 +1637,7 @@ def serve_sharded(cfg, params, dev, prompts, new, *, workers,
                states=[r.state for r in reqs], launches=launches,
                plans=log.plans, by_kind=log.by_kind(), wrong=log.wrong,
                finite=log.all_finite(), free_blocks=engine.pool.free_blocks,
-               scans=list(scans or ()),
+               scans=list(scans or ()), latency=latency(reqs),
                poisoned=poisoned[0],
                generated=sum(len(r.generated) for r in reqs))
     if runtime is not None:
@@ -1827,7 +1866,167 @@ def serve_runtime_phase(cfg, params, dev, bf16, int8) -> dict:
     print(f"  phase 4: {t_sub - t_phase:.1f} s in this process, "
           f"{time.perf_counter() - t_sub:.1f} s for the subprocesses",
           flush=True)
+    t4f = time.perf_counter()
+    guarded("4f shared prefixes", shared_prefix_phase, cfg, params, dev)
+    print(f"  phase 4f: {time.perf_counter() - t4f:.1f} s", flush=True)
     return out
+
+
+def aliased_chunk(cfg, params, dev, kv_dtype) -> None:
+    """4f(a): the reference's ``test_cached_prefill_logits_exact`` at full
+    width.  A producer prefills a 512-token system prompt into its pages
+    (two 256-token chunks), a consumer re-scatters the same prompt into
+    pages of its own; then one 256-token tail chunk at position 512 runs
+    over the consumer's own table and over a table whose first 32 entries
+    alias the producer's pages.  The logits and the 16 tail pages each
+    call writes (and their int8 scales) must be ``torch.equal``, and each
+    tail call must launch the tile once a layer, ``choose_variant``'s pick
+    for its shapes."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve.paged_model import init_pools, paged_prefill_chunk
+
+    bs, c, hit = 16, 256, SHARED_PREFIX
+    prompt = shared_trace(cfg.vocab_size)[0][:hit] + np.random.default_rng(
+        [SEED, 98]).integers(0, cfg.vocab_size, c).tolist()
+    nblk, n_hit = (hit + c) // bs, hit // bs
+    pools = init_pools(cfg, 2 * nblk + nblk - n_hit, bs, kv_dtype, dev)
+    prod = torch.arange(nblk, dtype=torch.int32, device=dev)
+    own = prod + nblk
+    fresh = torch.arange(2 * nblk, 3 * nblk - n_hit, dtype=torch.int32,
+                         device=dev)
+    shared = torch.cat([prod[:n_hit], fresh])
+
+    def prefill(table, lo, hi):
+        toks = torch.tensor([prompt[lo:hi]], dtype=torch.int32, device=dev)
+        pos = torch.arange(lo, hi, dtype=torch.int32, device=dev)[None]
+        return paged_prefill_chunk(cfg, params, pools, table[None], toks,
+                                   pos)[0]
+
+    for table in (prod, own):
+        for lo in range(0, hit, c):
+            prefill(table, lo, lo + c)
+    g = cfg.n_heads // cfg.n_kv_heads
+    want = pa.choose_variant(cfg.dtype, pools["k"].dtype, c * g,
+                             cfg.resolved_head_dim, bs)
+    moved, logits = [], []
+    for table in (own, shared):
+        before = {k: ctr.n for k, ctr in pa.VARIANT_LAUNCHES.items()}
+        logits.append(prefill(table, hit, hit + c))
+        torch.cuda.synchronize()
+        moved.append({k: ctr.n - before[k]
+                      for k, ctr in pa.VARIANT_LAUNCHES.items()
+                      if ctr.n != before[k]})
+    pages_equal = all(
+        torch.equal(t[:, own[n_hit:].long()], t[:, fresh.long()])
+        for t in pools.values())
+    same = torch.equal(logits[0], logits[1])
+    label = kv_dtype or "bf16"
+    phase(f"4f(a) aliased prefix pages, {label}: a 256-token tail chunk at "
+          "position 512 over 32 aliased pages == over its own pages",
+          same and pages_equal and want == "tile"
+          and moved == [{"tile": cfg.n_layers}] * 2
+          and bool(torch.isfinite(logits[0]).all()),
+          f"logits torch.equal {same}, tail pages (and scales) torch.equal "
+          f"{pages_equal}, launches by variant {moved}, choose_variant "
+          f"{want}")
+    del pools
+
+
+def shared_prefix_phase(cfg, params, dev) -> None:
+    """Phase 4f: shared KV prefixes on the phase 4 engine, full width.
+    (a) ``aliased_chunk`` with bf16 and int8 pages.  (b) ``shared_trace``
+    (32 requests, 16 new tokens) with one worker on 1 shard, bf16 pages,
+    caching on and then off: 32/32 drained each; with caching on, hits,
+    every prompt token prefilled or served from the cache, and each hit of
+    512 tokens two chunks fewer than the uncached run (token match
+    printed, not held).  (c) The trace on 4 workers and 2 shards, every
+    freed page poisoned at its earliest reuse: 32/32, no failed request,
+    hits, finite logits, a full drain, the launches held to the calls'
+    ``choose_variant`` tally.  (d) f32 at 8 layers (4a''s configuration),
+    one worker on 1 shard, the first 4 requests on each of the first 2
+    prefixes, caching on and off: hits, and the same greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    for kv_dtype in (None, "int8"):
+        guarded(f"4f(a) {kv_dtype or 'bf16'}", aliased_chunk, cfg, params,
+                dev, kv_dtype)
+    free_device_memory()
+
+    prompts, new, c = shared_trace(cfg.vocab_size), 16, 256
+    total = sum(map(len, prompts))
+    chunks = sum(-(-len(p) // c) for p in prompts)
+    runs = {}
+    for caching in (True, False):
+        name = f"4f(b) 1 worker, 1 shard, bf16, caching {caching}"
+        r = guarded(name, serve_sharded, cfg, params, dev, prompts, new,
+                    workers=1, shards=1, prefix_caching=caching)
+        if r is None:
+            continue
+        st = r["stats"]
+        hits, hit_tokens = st["prefix_hits"], st["prefix_hit_tokens"]
+        conserved = st["prefill_tokens"] + hit_tokens == total
+        saved = (hit_tokens == SHARED_PREFIX * hits
+                 and st["prefill_chunks"] == chunks - 2 * hits)
+        phase(f"{name}, 32 requests", _full(r, 32, new) and conserved
+              and saved and (hits >= 1 if caching else hits == 0)
+              and _counts_ok(r, ("decode", "mixed")),
+              f"prefix_hits={hits} prefix_hit_tokens={hit_tokens} "
+              f"prefill_tokens={st['prefill_tokens']} of {total} prompt "
+              f"tokens, prefill_chunks={st['prefill_chunks']} (uncached "
+              f"{chunks}); " + _summary(r))
+        runs[caching] = r
+    if len(runs) == 2:
+        on, off = runs[True], runs[False]
+        print("  4f(b) output tokens/s (host clock, 32 requests x 16 tokens, "
+              f"1 worker, 1 shard): caching on {on['generated'] / on['dt']:.2f}"
+              f" ({on['dt']:.3f} s), off {off['generated'] / off['dt']:.2f} "
+              f"({off['dt']:.3f} s); prefill chunks {on['stats']['prefill_chunks']}"
+              f" against {off['stats']['prefill_chunks']}; greedy token match "
+              f"on/off {token_match(off['tokens'], on['tokens'])} on "
+              f"{gpu_name_and_limit()}", flush=True)
+        print(f"  4f(b) caching on: {on['latency']}; off: {off['latency']}",
+              flush=True)
+
+    r = guarded("4f(c)", serve_sharded, cfg, params, dev, prompts, new,
+                workers=4, poison=True, check_finite=True)
+    if r is not None:
+        st = r["stats"]
+        phase("4f(c) 4 workers, 2 shards, bf16, poison on free, 32 requests",
+              _full(r, 32, new) and st["prefix_hits"] > 0
+              and r["poisoned"] > 0 and r["finite"]
+              and _counts_ok(r, ("decode", "mixed")),
+              f"prefix_hits={st['prefix_hits']} prefix_hit_tokens="
+              f"{st['prefix_hit_tokens']} poisoned={r['poisoned']} finite "
+              f"logits {r['finite']}; " + _summary(r))
+        print(f"  4f(c) output tokens/s (host clock): "
+              f"{r['generated'] / r['dt']:.2f} ({r['dt']:.3f} s) on "
+              f"{gpu_name_and_limit()}", flush=True)
+
+    f32 = get_config("stablelm-3b").scaled(n_layers=8, dtype=torch.float32)
+    f32_params = init_params(f32, torch.Generator(device=dev).manual_seed(
+        SEED), device=dev)
+    # the first 4 requests of system prompts 0 and 1, in trace order
+    few = [p for i, p in enumerate(shared_trace(f32.vocab_size))
+           if i % SHARED_SYSTEMS < 2][:8]
+    runs = {}
+    for caching in (True, False):
+        r = guarded(f"4f(d) caching {caching}", serve_sharded, f32,
+                    f32_params, dev, few, new, workers=1, shards=1,
+                    prefix_caching=caching)
+        if r is not None:
+            runs[caching] = r
+    if len(runs) == 2:
+        on, off = runs[True], runs[False]
+        phase("4f(d) f32, 8 layers, 1 worker, 1 shard, 8 requests: caching "
+              "on == off", _full(on, 8, new) and _full(off, 8, new)
+              and on["stats"]["prefix_hits"] > 0
+              and off["stats"]["prefix_hits"] == 0
+              and on["tokens"] == off["tokens"],
+              f"prefix_hits={on['stats']['prefix_hits']}, greedy token match "
+              f"{token_match(off['tokens'], on['tokens'])}")
+    del f32_params
+    free_device_memory()
 
 
 def shard_tokens(dev) -> dict:
