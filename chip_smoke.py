@@ -48,7 +48,17 @@ Phases, each printing its own line; any failure exits non-zero:
    weights with int8 KV pages; then (3c) the 8-request profile-window
    trace once under each pool scheme (WFE, Crystalline, HE, EBR, 2GEIBR),
    bf16 pages: each completes 8/8, drains, launches the era scan and emits
-   the WFE run's greedy tokens.
+   the WFE run's greedy tokens.  Every serving run of phases 3, 4 and 6
+   runs the engine's compiled steps: one CUDA graph per shard and step
+   signature, captured at its first dispatch and replayed after; its
+   launches are counted, and its calls logged, at each replay.
+   3e (after 3d) one worker, 1 shard: the 32-request trace with bf16 pages
+   and the 8-request window with int8 pages, each compiled and then under
+   the engine's eager context (``_eager_steps``): the same greedy tokens at
+   every position, the same launches by variant and calls by plan kind,
+   both drained, one graph per signature; tokens/s, ms a step, TTFT/TPOT,
+   peak memory, capture seconds and the idle share of one profiled window
+   printed for both.
 4. The sharded engine and the multi-worker runtime on the same weights,
    with phase 3's engine split over 2 shards of 1024 blocks (each with its
    own device pool, scratch slot and CUDA stream), every launch count
@@ -980,6 +990,9 @@ def serve_full_width(dev):
     guarded("3d scheduler policies", serve_policies, cfg, params, dev,
             schemes["WFE"]["tokens"])
     print(f"  phase 3d: {time.perf_counter() - t3d:.1f} s", flush=True)
+    t3e = time.perf_counter()
+    guarded("3e compiled steps", compiled_phase, cfg, params, dev)
+    print(f"  phase 3e: {time.perf_counter() - t3e:.1f} s", flush=True)
     runtime = serve_runtime_phase(cfg, params, dev, bf16, int8)
     zoo = guarded("model zoo stablelm-3b prefill", zoo_dense_prefill, cfg,
                   params, dev)
@@ -1342,16 +1355,19 @@ class PlanLog:
     what ``choose_variant`` gives for the call's shapes (the launch counts
     are held to these tallies); with ``check_finite``, one flag per step
     saying whether all its logits were finite.  ``close()`` removes every
-    wrapper.
+    wrapper.  A call the engine captures into a CUDA graph is recorded at
+    each replay of the graph (``build.at_replay``), as its launches are
+    counted.
 
     With ``per_call`` (one thread only: the counters then move for no other
     call) each call's variant is the one it launched, read from the variant
-    counters around it, and a call that launched anything but
-    ``choose_variant``'s pick for its shapes (split: one split and one
-    combine) goes into ``wrong``."""
+    counters around it (with what a capture on this thread tallied), and a
+    call that launched anything but ``choose_variant``'s pick for its
+    shapes (split: one split and one combine) goes into ``wrong``."""
 
     def __init__(self, engine, check_finite: bool = False,
                  per_call: bool = False):
+        from repro_torch.kernels import build
         from repro_torch.kernels import paged_attention as pa
         from repro_torch.serve import engine as engine_mod
 
@@ -1378,17 +1394,18 @@ class PlanLog:
                                      k_pool.shape[1])
             kind = getattr(self._kind, "value", None)
             if not per_call:
-                self._add(self.calls, (kind, want))
+                build.at_replay(lambda: self._add(self.calls, (kind, want)))
                 return self._chunk(q, k_pool, *args, **kwargs)
-            before = {k: ctr.n for k, ctr in pa.VARIANT_LAUNCHES.items()}
+            before = {k: build.launched(ctr)
+                      for k, ctr in pa.VARIANT_LAUNCHES.items()}
             out = self._chunk(q, k_pool, *args, **kwargs)
-            moved = {k: ctr.n - before[k]
+            moved = {k: build.launched(ctr) - before[k]
                      for k, ctr in pa.VARIANT_LAUNCHES.items()
-                     if ctr.n != before[k]}
+                     if build.launched(ctr) != before[k]}
             expect = ({"split": 1, "combine": 1} if want == "split"
                       else {want: 1})
-            self._add(self.calls, (kind, want if moved == expect
-                                   else "+".join(sorted(moved)) or "none"))
+            got = want if moved == expect else "+".join(sorted(moved)) or "none"
+            build.at_replay(lambda: self._add(self.calls, (kind, got)))
             if moved != expect:
                 self.wrong.append((kind, tuple(q.shape), want, moved))
             return out
@@ -1400,8 +1417,12 @@ class PlanLog:
                 def checked(*args, _step=step):
                     logits, pools = _step(*args)
                     flag = torch.isfinite(logits).all()
-                    with self._lock:
-                        self._flags.append(flag)
+
+                    def keep():  # a replay's flag, copied out of the graph
+                        with self._lock:
+                            self._flags.append(flag.clone())
+
+                    build.at_replay(keep)
                     return logits, pools
 
                 setattr(engine_mod, name, checked)
@@ -1508,6 +1529,146 @@ def profile_window(engine, tid, cfg):
     print("  top device kernels: " + "; ".join(
         f"{k} {v / 1e3:.1f} ms" for k, v in top), flush=True)
     return [r.generated for r in reqs]
+
+
+def serve_once(cfg, params, dev, kv_dtype, prompts, new, eager) -> dict:
+    """3e: ``prompts`` (``new`` tokens each) on phase 3's engine (one
+    worker, 1 shard), its steps compiled (one CUDA graph per signature) or,
+    with ``eager``, under ``_eager_steps()``; each call's variant held
+    against ``choose_variant``, launch counts zeroed just before the run
+    and read just after.  The run's first dispatch of each signature
+    captures its graph, so on the same engine the 8-request window runs
+    three times (salts 7, 8, 9: the same lengths, no shared prefix): once
+    to capture what the run did not, once timed (the warm window), once
+    under torch.profiler (CUDA activity only, for a short parse): the
+    device's busy share is the union of its kernel and copy intervals over
+    the warm window's wall time.  Returns what the runs produced; the
+    engine is freed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import era_scan as es
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import _eager_steps
+
+    n_blocks = 2048
+    engine = ServeEngine(cfg, params, n_blocks=n_blocks, block_size=16,
+                         max_batch=8, chunk_size=256, scheme="WFE",
+                         use_kernel=True, kv_dtype=kv_dtype, device=dev)
+    tid = engine.pool.register_thread()
+    counters = {"paged_attention_chunk": pa.LAUNCHES,
+                "paged_attention_chunk_int8": pa.LAUNCHES_Q8,
+                "era_scan_interval": es.LAUNCHES, **pa.VARIANT_LAUNCHES}
+    with _eager_steps() if eager else contextlib.nullcontext():
+        log = PlanLog(engine, per_call=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for ctr in counters.values():
+            ctr.n = 0
+        t0 = time.perf_counter()
+        reqs = [engine.submit(p, max_new_tokens=new) for p in prompts]
+        stats = engine.run(tid)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: ctr.n for k, ctr in counters.items()}
+        log.close()
+        out = dict(
+            stats=stats, dt=dt, tokens=[r.generated for r in reqs],
+            latency=latency(reqs), launches=launches, by_kind=log.by_kind(),
+            wrong=log.wrong, peak=torch.cuda.max_memory_allocated(),
+            capture_s=engine._capture_seconds, graphs=len(engine._graphs),
+            signatures=engine.compile_cache_size(),
+            generated=sum(len(r.generated) for r in reqs),
+            drained=(engine.pool.unreclaimed() == 0
+                     and engine.pool.free_blocks == n_blocks))
+        _window(engine, tid, cfg, salt=7)
+        wall, by_kind, warm = _window(engine, tid, cfg, salt=8)
+        t_prof = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, prof_kind, _ = _window(engine, tid, cfg, salt=9)
+    steps = sum(map(len, prof_kind.values()))
+    busy_sum, busy = _device_busy(prof)
+    out["profile_s"] = time.perf_counter() - t_prof
+    device_events = sum(1 for e in prof.events()
+                        if e.device_type.name == "CUDA")
+    graph_launches = sum(1 for e in prof.events()
+                         if "cudaGraphLaunch" in e.name)
+    out.update(window_wall=wall, busy=busy, busy_sum=busy_sum,
+               window_steps=sum(map(len, by_kind.values())),
+               window_generated=sum(len(r.generated) for r in warm),
+               events_per_step=device_events / max(1, steps),
+               graph_launches=graph_launches)
+    del engine, log, prof
+    free_device_memory()
+    return out
+
+
+def compiled_phase(cfg, params, dev) -> None:
+    """3e: the engine's compiled steps against its eager ones on phase 3's
+    full-width weights, one worker on 1 shard: the 32-request trace with
+    bf16 pages and the 8-request window with int8 pages, each compiled and
+    then under the eager context.  Limits: the same greedy tokens at every
+    position, the same launches by variant and calls by plan kind and
+    variant, every call on its variant, both runs drained, one graph per
+    signature dispatched (none eager).  Printed for both: tokens/s, ms a
+    step, TTFT/TPOT, peak memory, capture seconds, the device's idle share
+    of one profiled window and its device events a step (a replay the
+    profiler showed as one launch would give about one)."""
+    runs = (("bf16 pages, 32 requests", None,
+             trace(32, 64, 1024, cfg.vocab_size), 64),
+            ("int8 pages, 8-request window", "int8",
+             trace(8, 256, 768, cfg.vocab_size, salt=1), 16))
+    for label, kv_dtype, prompts, new in runs:
+        got = {mode: serve_once(cfg, params, dev, kv_dtype, prompts, new,
+                                eager=mode == "eager")
+               for mode in ("compiled", "eager")}
+        c, e = got["compiled"], got["eager"]
+        for mode, r in got.items():
+            st = r["stats"]
+            print(f"  3e {mode}, {label}: {r['dt']:.3f} s wall, "
+                  f"{r['generated'] / r['dt']:.2f} output tokens/s, "
+                  f"{r['dt'] / st['steps'] * 1e3:.2f} ms/step over "
+                  f"{st['steps']} steps; {r['latency']}; peak device memory "
+                  f"{r['peak'] / 2**30:.2f} GiB; {r['graphs']} graphs for "
+                  f"{r['signatures']} signatures (compile_cache_size), "
+                  f"captured in {r['capture_s']:.3f} s; warm window: "
+                  f"{r['window_wall']:.3f} s wall, "
+                  f"{r['window_generated'] / r['window_wall']:.2f} output "
+                  f"tokens/s, {r['window_wall'] / r['window_steps'] * 1e3:.2f}"
+                  f" ms/step over {r['window_steps']} steps; profiled window "
+                  f"({r['profile_s']:.1f} s with the trace's parse): "
+                  f"device busy (union of intervals) {r['busy']:.3f} s of "
+                  f"{r['window_wall']:.3f} s unprofiled = "
+                  f"{r['busy'] / r['window_wall']:.1%}, idle "
+                  f"{1 - r['busy'] / r['window_wall']:.1%} (sum "
+                  f"{r['busy_sum']:.3f} s), {r['events_per_step']:.1f} "
+                  f"device events a step, {r['graph_launches']} "
+                  f"cudaGraphLaunch calls; launches {r['launches']}; on "
+                  f"{gpu_name_and_limit()}", flush=True)
+        same = c["tokens"] == e["tokens"]
+        variants = ("paged_attention_chunk", "paged_attention_chunk_int8",
+                    *(k for k in c["launches"] if k in
+                      ("tile", "split", "combine", "cuda_core")))
+        launches_same = all(c["launches"][k] == e["launches"][k]
+                            for k in variants)
+        phase(f"3e compiled steps == eager, {label}",
+              same and launches_same and c["by_kind"] == e["by_kind"]
+              and not c["wrong"] and not e["wrong"]
+              and c["drained"] and e["drained"]
+              and c["stats"]["completed"] == e["stats"]["completed"]
+              == len(prompts)
+              and c["graphs"] == c["signatures"] > 0 and e["graphs"] == 0,
+              f"tokens equal {same} ({token_match(e['tokens'], c['tokens'])}"
+              f"), launches by variant equal {launches_same}, calls by plan "
+              f"kind {c['by_kind']} (eager {e['by_kind']}), calls off their "
+              f"variant {c['wrong'][:2]} / {e['wrong'][:2]}, drained "
+              f"{c['drained']}/{e['drained']}, graphs {c['graphs']} for "
+              f"{c['signatures']} signatures")
+        print(f"  3e {label}: compiled / eager output tokens/s "
+              f"{c['generated'] / c['dt'] / (e['generated'] / e['dt']):.2f}x"
+              f" (the run, captures included), "
+              f"{e['window_wall'] / c['window_wall']:.2f}x (the warm window)",
+              flush=True)
 
 
 # ------------------------------------------------------------ phase 4: runtime

@@ -11,6 +11,7 @@ built when the module is imported: the first kernel launch calls
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -60,7 +61,9 @@ class Counter:
     """Launch count of one kernel: an integer ``n``, bumped by its wrapper
     once per launch (``bump``) and nowhere else.  ``bump`` takes a lock:
     serving workers launch from several threads, and a bare ``+=`` there
-    can lose an update."""
+    can lose an update.  Inside a CUDA-graph capture on the calling thread
+    (``capturing``) nothing is launched, so a bump goes to the capture's
+    tally instead, and each replay of the graph adds it."""
 
     __slots__ = ("n", "_lock")
 
@@ -69,8 +72,68 @@ class Counter:
         self._lock = threading.Lock()
 
     def bump(self) -> None:
+        tally = getattr(_capture, "tally", None)
+        if tally is not None:
+            tally.counts[self] = tally.counts.get(self, 0) + 1
+        else:
+            self.add(1)
+
+    def add(self, k: int) -> None:
         with self._lock:
-            self.n += 1
+            self.n += k
+
+
+class Tally:
+    """What one CUDA-graph capture launched: the bumps of each counter
+    (``counts``) and the callbacks deferred with ``at_replay`` (``calls``).
+    ``replay`` applies them once; the engine calls it at each replay of the
+    graph, so the counters read what the card ran."""
+
+    __slots__ = ("counts", "calls")
+
+    def __init__(self) -> None:
+        self.counts: dict = {}
+        self.calls: list = []
+
+    def replay(self) -> None:
+        for counter, k in self.counts.items():
+            counter.add(k)
+        for fn in self.calls:
+            fn()
+
+
+_capture = threading.local()
+
+
+@contextlib.contextmanager
+def capturing():
+    """Tally, rather than count, the launches this thread makes inside the
+    block (a CUDA-graph capture, which launches nothing); yields the
+    ``Tally``.  Other threads keep counting."""
+    outer = getattr(_capture, "tally", None)
+    tally = _capture.tally = Tally()
+    try:
+        yield tally
+    finally:
+        _capture.tally = outer
+
+
+def at_replay(fn) -> None:
+    """Call ``fn()`` now, or, inside a capture on this thread, at each
+    replay of the graph being captured (an observer of launches keeps its
+    records per launch this way)."""
+    tally = getattr(_capture, "tally", None)
+    if tally is None:
+        fn()
+    else:
+        tally.calls.append(fn)
+
+
+def launched(counter: Counter) -> int:
+    """``counter.n`` plus what a capture open on this thread has tallied of
+    it: the launches this thread has asked for so far."""
+    tally = getattr(_capture, "tally", None)
+    return counter.n + (0 if tally is None else tally.counts.get(counter, 0))
 
 
 def _nvcc() -> str:

@@ -11,11 +11,21 @@ Ported from ``repro.serve.engine``:
   reclaims.
 
 Shape buckets (``bucket_policy``) pad every step to (rows, width) buckets
-exactly as the reference does, so a request's steps keep one shape; there
-is no compile cache here, and ``compile_cache_size`` counts the distinct
-padded step shapes dispatched instead.  Padding is cheap because the
-attention kernel is LENGTH-BOUNDED: it walks each request's
-``num_live_blocks`` table slots only.
+exactly as the reference does, so a request's steps keep one shape.
+Padding is cheap because the attention kernel is LENGTH-BOUNDED: it walks
+each request's ``num_live_blocks`` table slots only.
+
+Compiled steps, the counterpart of the reference's ``_jit_decode`` and
+``_jit_prefill``: on the card each (shard, step signature) is captured
+once as a CUDA graph, greedy argmax included, and replayed from then on
+(``_run_step``).  Every input of a padded step has a shape fixed by its
+signature (``_chunk_inputs`` routes the chunk's padded K/V writes to the
+scratch slot instead of leaving them out), so the signature is the key
+``compile_cache_size`` counts, as the reference counts its compiles.  The
+first dispatch of a signature runs eagerly (the warm-up, and its result),
+then the capture; a capture or replay that fails raises, and nothing falls
+back to the eager step.  ``_eager_steps()`` runs the eager step on the
+card instead (``jax.disable_jit``'s counterpart); the CPU always does.
 
 ``use_kernel=True`` selects the ``cuda`` era-scan backend for
 ``cleanup_batch``; attention runs on the CUDA kernel whenever the engine's
@@ -36,17 +46,16 @@ the pool into per-shard SMR instances joined by the distributed era clock
 int8 scale pools) and, on the card, its own CUDA stream.  Request-level
 sharding makes each plan touch one shard's pages, so a page of shard s is
 read and written only on stream s: stream order covers its reuse within
-the shard.  A step's whole device work — the copies of its tables, tokens
-and positions, the model step, the split-KV scratch, the argmax and the
-copy of the sampled ids back to the host — is queued on its shard's
+the shard.  A step's whole device work — the copy of its tables, tokens
+and positions, the graph replay (or the eager model step and argmax) and
+the copy of the sampled ids back to the host — is queued on its shard's
 stream under the engine's dispatch lock; the wait for the ids happens
 OUTSIDE the lock, so while one worker waits another launches the next
 step, and the two shards' streams run on the card at once.  The
-reference keeps one lock per shard because its dispatch is one jitted
-call; here a step is some thousand eager launches, each of which releases
-and retakes the GIL, so two workers launching at once hand the GIL back
-and forth at every launch, and one lock for all shards serves twice the
-tokens/s of per-shard locks with 2 workers on 2 shards (PERF.md).
+reference keeps one lock per shard; here one lock for all shards served
+twice the tokens/s of per-shard locks with 2 workers on 2 shards when a
+step was some thousand eager launches, each releasing and retaking the
+GIL (PERF.md); with one replay a step, that choice is open.
 Parameters and pools are built before any worker starts and the card is
 synchronised once after, so every tensor that crosses streams is
 long-lived.
@@ -61,6 +70,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -69,6 +79,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.blocks import (BlockPool, PrefixCache, Scheduler,
                                 ShardedBlockPool)
+from repro_torch.kernels import build
 from repro_torch.models.common import ArchConfig
 
 from .paged_model import (_check_paged_support, init_pools, paged_decode_step,
@@ -81,6 +92,71 @@ __all__ = ["ServeEngine"]
 #: +1 slack.  More stalled rounds than this means a reservation is still
 #: held (an in-flight step) — drain returns instead of spinning.
 DRAIN_ERA_BOUND = 4
+
+#: how many ``_eager_steps()`` blocks are open, in any thread
+_eager_depth = [0]
+_eager_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def _eager_steps():
+    """Every engine dispatches its steps eagerly on the card inside the
+    block, capturing and replaying no graph: the plain version of the
+    compiled step, as ``jax.disable_jit()`` is the reference's.  For the
+    card's checks that hold graphs against it; process-wide, so it covers
+    worker threads."""
+    with _eager_lock:
+        _eager_depth[0] += 1
+    try:
+        yield
+    finally:
+        with _eager_lock:
+            _eager_depth[0] -= 1
+
+
+class _StepInputs:
+    """A compiled step's int32 inputs: one device buffer whose views
+    (``views``; None stays None) the graph reads, each at an offset
+    aligned to 64 bytes.  ``load`` copies one dispatch's arrays in on the
+    current stream through a fresh pinned buffer, so a copy still queued
+    for an earlier step of the shard never reads a buffer refilled for a
+    later one."""
+
+    def __init__(self, arrays, device):
+        self.shapes = [None if a is None else np.shape(a) for a in arrays]
+        self.offsets, n = [], 0
+        for shape in self.shapes:
+            self.offsets.append(n)
+            if shape is not None:
+                n += -(-int(np.prod(shape)) // 16) * 16
+        self.size = max(n, 16)
+        self.buf = torch.empty(self.size, dtype=torch.int32, device=device)
+        self.views = [None if shape is None
+                      else self.buf[o:o + int(np.prod(shape))].view(shape)
+                      for shape, o in zip(self.shapes, self.offsets)]
+
+    def load(self, arrays) -> None:
+        host = torch.empty(self.size, dtype=torch.int32, pin_memory=True)
+        flat = host.numpy()
+        for a, shape, o in zip(arrays, self.shapes, self.offsets):
+            got = None if a is None else np.shape(a)
+            if got != shape:
+                raise ValueError(f"step input of shape {got}: the graph was "
+                                 f"captured for {shape}")
+            if a is not None:
+                flat[o:o + a.size] = np.ravel(a)
+        self.buf.copy_(host, non_blocking=True)
+
+
+class _Graph:
+    """One captured step: the graph, its static inputs and (rows,) sampled
+    ids, and the launches its capture tallied (added at each replay)."""
+
+    __slots__ = ("graph", "inputs", "ids", "tally")
+
+    def __init__(self, graph, inputs, ids, tally):
+        self.graph, self.inputs, self.ids = graph, inputs, ids
+        self.tally = tally
 
 
 class ServeEngine:
@@ -171,6 +247,18 @@ class ServeEngine:
         cuda = self.device.type == "cuda"
         self._streams = [torch.cuda.Stream(device=self.device) if cuda
                          else None for _ in self._shard_sizes]
+        # the compiled steps by (shard, key), each shard's graph memory
+        # pool (made at its first capture) and capture stream.  Captures
+        # run on a stream of their own because other workers free pinned
+        # buffers while one captures, and the pinned allocator then records
+        # an event on each stream the buffer was copied on: the shard
+        # stream, which must not be capturing.  Replays run on the shard
+        # stream
+        self._graphs: Dict[Tuple, _Graph] = {}
+        self._graph_pools: List[Optional[tuple]] = [None] * len(self._streams)
+        self._capture_streams = [torch.cuda.Stream(device=self.device)
+                                 if cuda else None for _ in self._streams]
+        self._capture_seconds = 0.0
         if cuda:
             # the parameters and the pools were written on the default
             # stream; the shard streams read them from here on
@@ -179,15 +267,22 @@ class ServeEngine:
 
     # ------------------------------------------- compile-cache introspection
     def compile_cache_size(self) -> int:
-        """Distinct padded step shapes dispatched so far: the reference's
-        compile count, kept observable for the bucket policy."""
+        """Distinct step signatures dispatched so far: the reference's
+        compile count (on the card, one graph per shard and signature)."""
         return len(self._shapes)
 
     def clear_compile_caches(self) -> bool:
-        """Forget the dispatched step shapes (the port compiles nothing per
-        shape; this resets what ``compile_cache_size`` counts)."""
+        """Drop the captured graphs and their memory pools, and forget the
+        dispatched signatures."""
         self._shapes.clear()
+        self._drop_graphs(range(len(self._streams)))
         return True
+
+    def _drop_graphs(self, shards) -> None:
+        for s in shards:
+            for key in [k for k in self._graphs if k[0] == s]:
+                del self._graphs[key]
+            self._graph_pools[s] = None
 
     # single-shard view of the device pools (tests drive the steps with
     # engine.pools directly)
@@ -197,6 +292,8 @@ class ServeEngine:
 
     @pools.setter
     def pools(self, value):
+        # shard 0's graphs write the old pools' pages: they go with them
+        self._drop_graphs([0])
         self._shard_pools[0] = value
 
     def submit(self, prompt: List[int], max_new_tokens: int,
@@ -354,26 +451,50 @@ class ServeEngine:
             out.append(t)
         return out
 
+    def _sample(self, step, shard: int, args) -> torch.Tensor:
+        """``step`` on the shard's pools and greedy sampling: (rows,) ids."""
+        logits, _ = step(self.cfg, self.params, self._shard_pools[shard],
+                         *args)
+        return torch.argmax(logits, dim=-1)
+
+    def _signature(self, kind: str, arrays) -> Tuple:
+        """The key of a step of ``kind`` on ``arrays``: the shapes its
+        inputs take (padded, the table's and the chunk bucket's fix every
+        other one; unpadded, the written tokens and re-coded blocks count
+        too)."""
+        tables = arrays[0]
+        if kind == "decode":
+            return ("decode", tables.shape)
+        key = (kind, tables.shape, arrays[1].shape[1])
+        if not self.pad_shapes:
+            key += tuple(None if a is None else len(a) for a in arrays[-2:])
+        return key
+
     def _run_step(self, plan, step, arrays, b: int) -> np.ndarray:
-        """Run ``step(cfg, params, pools, *arrays)`` on the plan's shard:
-        every copy, launch and the argmax on the shard's stream under the
-        dispatch lock, the sampled ids copied into pinned host memory
-        behind an event; the wait for that event happens outside the lock,
-        and nothing under the lock syncs with the host.  Returns the (b,)
+        """Run ``step(cfg, params, pools, *arrays)`` and its argmax on the
+        plan's shard under the dispatch lock; the step's signature
+        (``_signature``) is counted and names its graph.  On the card every
+        copy, the replay (or the eager launches) and the argmax go on the
+        shard's stream, the sampled ids are copied into pinned host memory
+        behind an event, and the wait for that event happens outside the
+        lock; nothing under the lock syncs with the host.  Returns the (b,)
         sampled ids."""
+        key = self._signature(plan.kind, arrays)
+        self._shapes.add(key)
         s = plan.shard
         stream = self._streams[s]
         on_stream = (torch.cuda.stream(stream) if stream is not None
                      else contextlib.nullcontext())
         with self._dispatch_lock, on_stream:
-            args = self._inputs(arrays)
-            logits, _ = step(self.cfg, self.params, self._shard_pools[s],
-                             *args)
-            ids = torch.argmax(logits, dim=-1)[:b]
-            if stream is None:
-                return ids.numpy()
-            host = torch.empty(ids.shape, dtype=ids.dtype, pin_memory=True)
-            host.copy_(ids, non_blocking=True)
+            if stream is None:  # the CPU runs the eager step
+                return self._sample(step, s,
+                                    self._inputs(arrays))[:b].numpy()
+            if _eager_depth[0]:
+                ids = self._sample(step, s, self._inputs(arrays))
+            else:
+                ids = self._compiled(s, step, key, arrays)
+            host = torch.empty((b,), dtype=ids.dtype, pin_memory=True)
+            host.copy_(ids[:b], non_blocking=True)
             # a default (spinning) event: a blocking one measured no faster
             # with 1, 2 or 4 workers (tools/dispatch_lock_ab.py)
             done = torch.cuda.Event()
@@ -382,6 +503,45 @@ class ServeEngine:
         # one waits (on this shard's stream only, never the default one)
         done.synchronize()
         return host.numpy()
+
+    def _compiled(self, s: int, step, key, arrays) -> torch.Tensor:
+        """The compiled step on shard ``s``, called under the dispatch lock
+        on the shard's stream: the replay of the graph of (s, key), after
+        its inputs are copied into the graph's buffers.  The first dispatch
+        of (s, key) runs the step eagerly on those buffers (its ids are the
+        result; it also sets up what a capture must not: the kernel
+        library, cuBLAS's workspaces, the kernels' attributes), then
+        captures the graph in the shard's graph pool.  The shard's replays
+        are ordered on its stream, and each one's ids are copied out before
+        the next, so its graphs share one pool.  Launches in the capture
+        are tallied, not counted; each replay adds the tally."""
+        graph = self._graphs.get((s, key))
+        if graph is not None:
+            graph.inputs.load(arrays)
+            graph.graph.replay()
+            graph.tally.replay()
+            return graph.ids
+        inputs = _StepInputs(arrays, self.device)
+        inputs.load(arrays)
+        ids = self._sample(step, s, inputs.views)
+        t0 = time.perf_counter()
+        if self._graph_pools[s] is None:
+            self._graph_pools[s] = torch.cuda.graph_pool_handle()
+        g = torch.cuda.CUDAGraph()
+        with build.capturing() as tally, \
+                torch.cuda.stream(self._capture_streams[s]):
+            g.capture_begin(pool=self._graph_pools[s],
+                            capture_error_mode="thread_local")
+            try:
+                static_ids = self._sample(step, s, inputs.views)
+            except BaseException:
+                with contextlib.suppress(Exception):
+                    g.capture_end()  # ends the capture; the step's error
+                raise                # is the one to report
+            g.capture_end()
+        self._graphs[(s, key)] = _Graph(g, inputs, static_ids, tally)
+        self._capture_seconds += time.perf_counter() - t0
+        return ids
 
     def _dispatch_decode(self, plan) -> np.ndarray:
         b = plan.tables.shape[0]
@@ -396,7 +556,6 @@ class ServeEngine:
             tokens[:b] = plan.tokens
             positions = np.zeros((rows,), np.int32)
             positions[:b] = plan.positions
-        self._shapes.add(("decode", tables.shape))
         return self._run_step(plan, paged_decode_step,
                               (tables, lengths, tokens, positions), b)
 
@@ -413,10 +572,9 @@ class ServeEngine:
         positions = (ctx + np.minimum(np.arange(cb), n - 1)
                      ).astype(np.int32)[None, :]
         chunk_lens = np.array([n], np.int32)
-        self._shapes.add(("prefill", tables.shape, cb))
         return self._run_step(plan, paged_prefill_chunk,
-                              self._chunk_inputs(tables, tokens, positions,
-                                                 chunk_lens), 1)
+                              self._chunk_inputs(plan.shard, tables, tokens,
+                                                 positions, chunk_lens), 1)
 
     def _dispatch_mixed(self, plan) -> np.ndarray:
         """Decode rows + one prefill chunk row in ONE dispatch of the chunked
@@ -436,25 +594,43 @@ class ServeEngine:
             positions[:b, c:] = plan.positions[:, c - 1:c]
         chunk_lens = np.ones((rows,), np.int32)  # pad rows: 1 scratch token
         chunk_lens[:b] = plan.chunk_lens
-        self._shapes.add(("mixed", tables.shape, cb))
         return self._run_step(plan, paged_prefill_chunk,
-                              self._chunk_inputs(tables, tokens, positions,
-                                                 chunk_lens), b)
+                              self._chunk_inputs(plan.shard, tables, tokens,
+                                                 positions, chunk_lens), b)
 
-    def _chunk_inputs(self, tables, tokens, positions, chunk_lens):
-        """``paged_prefill_chunk``'s inputs with the indices it would
-        otherwise derive on the device through host syncs: the (row,
-        column) of each valid token and, for int8 pools, the sorted
-        distinct blocks they land in (``torch.unique``'s order)."""
-        cols = tokens.shape[1]
+    def _chunk_inputs(self, shard, tables, tokens, positions, chunk_lens):
+        """``paged_prefill_chunk``'s inputs with the K/V write indices it
+        would otherwise derive on the device through host syncs: the (row,
+        column) of each written token, its pool block and, for int8 pools,
+        the blocks to re-code (sorted, ``torch.unique``'s order).  Padded
+        (``pad_shapes``), every (row, column) is written, a padded one to
+        the shard's scratch slot, which the block pool never hands out (the
+        reference drops those writes), and the re-coded blocks are padded
+        with that slot to a length fixed by (rows, columns, block size):
+        every input's shape is then the step's signature's.  Unpadded, the
+        valid tokens only."""
+        rows, cols = tokens.shape
         valid = np.arange(cols)[None, :] < chunk_lens[:, None]
-        vb, vc = np.nonzero(valid)
+        slot = np.minimum(positions // self.block_size, tables.shape[1] - 1)
+        blocks = np.take_along_axis(tables, slot, axis=1)
+        pad_slot = self._shard_sizes[shard]
+        if self.pad_shapes:
+            wr, wc = np.divmod(np.arange(rows * cols), cols)
+            wblk = np.where(valid, blocks, pad_slot).ravel()
+        else:
+            wr, wc = np.nonzero(valid)
+            wblk = blocks[wr, wc]
         dest = None
         if self.kv_dtype == "int8":
-            vpos = positions[vb, vc]
-            slot = np.minimum(vpos // self.block_size, tables.shape[1] - 1)
-            dest = np.unique(tables[vb, slot])
-        return (tables, tokens, positions, chunk_lens, vb, vc, dest)
+            dest = np.unique(blocks[valid])
+            if self.pad_shapes:
+                # a row's valid tokens span at most (cols + bs - 2) // bs + 1
+                # blocks; one more for the scratch slot
+                per_row = (cols + self.block_size - 2) // self.block_size + 1
+                padded = np.full(rows * per_row + 1, pad_slot, np.int32)
+                padded[:len(dest)] = dest
+                dest = padded
+        return (tables, tokens, positions, chunk_lens, wr, wc, wblk, dest)
 
     # ------------------------------------------------------------- drain
     def drain(self, tid: int) -> int:

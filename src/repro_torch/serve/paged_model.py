@@ -160,8 +160,8 @@ def paged_decode_step(cfg, params, pools, tables, lengths, tokens, positions):
 
 
 def paged_prefill_chunk(cfg, params, pools, tables, tokens, positions,
-                        chunk_lens=None, valid_rows=None, valid_cols=None,
-                        dest_blocks=None):
+                        chunk_lens=None, write_rows=None, write_cols=None,
+                        write_blocks=None, dest_blocks=None):
     """Run a C-token prompt CHUNK against already-materialized pages.
 
     The chunk's K/V rows scatter into the pool blocks the table names
@@ -171,13 +171,20 @@ def paged_prefill_chunk(cfg, params, pools, tables, tokens, positions,
 
     tables (B, nblk) i32; tokens/positions (B, C) i32 (absolute positions);
     chunk_lens (B,) i32 — valid tokens per row (None = all C; padded
-    columns scatter nothing and their outputs are never read).
-    valid_rows/valid_cols (M,) — the (row, column) of every valid token,
-    row-major, as ``(arange(C) < chunk_lens[:, None]).nonzero()`` gives
-    them; dest_blocks — for int8 pools, the sorted distinct blocks those
-    tokens land in.  A caller that holds them on the host (the engine)
-    passes them in, and the step makes no host sync; left None, they are
-    derived here, at the cost of one sync each.
+    columns' outputs are never read).
+    The K/V writes: ``write_rows``/``write_cols`` (M,) name the (row,
+    column) of each token whose K/V the step writes, ``write_blocks`` (M,)
+    the pool block it goes to (at offset position % bs), and for int8
+    pools ``dest_blocks`` the blocks to re-code, which must hold every
+    value of ``write_blocks`` (duplicates re-code a block twice to the same
+    bytes).  The engine passes them from the host, so the step makes no
+    host sync and, padded, has one shape per step signature: every
+    (row, column) of the chunk, padded ones routed to a scratch block no
+    request reads (the reference's ``mode="drop"``), and ``dest_blocks``
+    padded with that block.  Left None, they are derived here for the
+    valid tokens only (the reference drops padded columns with an
+    out-of-range sentinel, which torch turns into a device-side assert),
+    at the cost of a host sync each (``nonzero``, ``unique``).
     Returns (logits of each row's LAST VALID token (B, V) f32, pools) — the
     pools written in place.
     """
@@ -190,22 +197,18 @@ def paged_prefill_chunk(cfg, params, pools, tables, tokens, positions,
     g = h // kh
     if chunk_lens is None:
         chunk_lens = torch.full((b,), c, dtype=torch.int32, device=dev)
-    # destination of each VALID chunk token.  The reference drops padded
-    # columns with an out-of-range sentinel and mode="drop"; an index that
-    # far out of range is a device-side assert in torch, so the padded
-    # columns are left out of the scatter instead.  The indices are shared
-    # by every layer; derived here, nonzero() syncs with the host.
-    if valid_rows is None:
+    # destination of each written chunk token, shared by every layer
+    if write_rows is None:
         valid = torch.arange(c, device=dev)[None, :] < chunk_lens[:, None]
         vb, vc = valid.nonzero(as_tuple=True)
     else:
-        vb, vc = valid_rows.long(), valid_cols.long()
+        vb, vc = write_rows.long(), write_cols.long()
     vpos = positions[vb, vc]
-    blk = tables[vb, torch.clamp(vpos // bs, max=nblk - 1).long()].long()
+    blk = (tables[vb, torch.clamp(vpos // bs, max=nblk - 1).long()].long()
+           if write_blocks is None else write_blocks.long())
     off = (vpos % bs).long()
     # int8 pools re-code each destination block once; the blocks are the
-    # same for every layer, so one set serves (torch.unique, derived here,
-    # is another host sync)
+    # same for every layer, so one set serves
     dest = None
     if "k_scale" in pools:
         dest = (torch.unique(blk) if dest_blocks is None

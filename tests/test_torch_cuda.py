@@ -31,9 +31,15 @@ held in both its variants (the tensor-core tile, and the f32 tile on f32
 and on widened bf16 inputs) to phase 8(a)'s limits, and its determinism
 and the f32 tile's 64-row and one-warp CTAs bitwise.  The engine's dispatch
 is run with the CUDA sync debug mode at "error" while its lock is held.
+The engine's compiled steps (one CUDA graph per shard and signature) give
+the eager steps' tokens and launch counts bitwise, with bf16 and int8
+pages, over decode, mixed and prefill steps; the ``pools`` setter and
+``clear_compile_caches()`` drop the graphs; a capture holds while another
+thread waits on the shard's stream, scans eras and frees pinned memory.
 """
 
 import math
+import threading
 
 import numpy as np
 import pytest
@@ -811,7 +817,9 @@ def _sharded_engine(dev, **kw):
 def test_each_shard_steps_on_its_own_stream(dev, monkeypatch):
     """Every step of shard s runs on shard s's stream, which is neither the
     other shard's nor the default stream, and both shards' pools take
-    writes; the run completes and drains."""
+    writes; the run completes and drains.  A step called while a graph is
+    captured is on the shard's capture stream (its replays run on the
+    shard's stream)."""
     from repro_torch.serve import engine as engine_mod
 
     engine = _sharded_engine(dev)
@@ -820,7 +828,8 @@ def test_each_shard_steps_on_its_own_stream(dev, monkeypatch):
         def wrapped(cfg, params, pools, *args, _real=getattr(engine_mod,
                                                              name)):
             seen.append((pools["k"].data_ptr(),
-                         torch.cuda.current_stream(dev).cuda_stream))
+                         torch.cuda.current_stream(dev).cuda_stream,
+                         torch.cuda.is_current_stream_capturing()))
             return _real(cfg, params, pools, *args)
 
         monkeypatch.setattr(engine_mod, name, wrapped)
@@ -831,11 +840,14 @@ def test_each_shard_steps_on_its_own_stream(dev, monkeypatch):
     assert engine.pool.unreclaimed() == 0 and engine.pool.free_blocks == 32
     shard_of = {p["k"].data_ptr(): s
                 for s, p in enumerate(engine._shard_pools)}
-    streams = {}
-    for ptr, stream in seen:
-        streams.setdefault(shard_of[ptr], set()).add(stream)
+    streams, captures = {}, {}
+    for ptr, stream, capturing in seen:
+        (captures if capturing else streams).setdefault(
+            shard_of[ptr], set()).add(stream)
     own = [s.cuda_stream for s in engine._streams]
     assert streams == {0: {own[0]}, 1: {own[1]}}
+    assert captures == {s: {c.cuda_stream}
+                        for s, c in enumerate(engine._capture_streams)}
     assert own[0] != own[1]
     assert torch.cuda.default_stream(dev).cuda_stream not in own
     for pools in engine._shard_pools:
@@ -931,6 +943,149 @@ def test_int8_scale_pools_are_per_shard(dev):
     assert engine.pool.unreclaimed() == 0
     for pools in engine._shard_pools:
         assert pools["k_scale"].max().item() > 0, "a shard's scales unused"
+
+
+# ------------------------------------------------ compiled steps (graphs)
+LAUNCH_COUNTERS = {"float": paged_attention.LAUNCHES,
+                   "int8": paged_attention.LAUNCHES_Q8,
+                   **paged_attention.VARIANT_LAUNCHES}
+
+
+def _smoke_engine(dev, **kw):
+    """The bf16 smoke stablelm-3b on one shard of the card, with the era
+    scan on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_smoke_config("stablelm-3b").scaled(dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    kw = {**dict(n_blocks=48, block_size=4, max_batch=4, chunk_size=8,
+                 era_freq=1, cleanup_freq=1, use_kernel=True), **kw}
+    return ServeEngine(cfg, params, device=dev, **kw)
+
+
+def _serve_counted(engine, eager=False):
+    """Serve SHARD_PROMPTS x 3 (6 new tokens each) on one thread, the launch
+    counts zeroed just before; returns (tokens, launches, plan kinds)."""
+    import contextlib
+
+    from repro_torch.serve.engine import _eager_steps
+
+    kinds = []
+    real = engine._run_step
+
+    def spy(plan, *args):
+        kinds.append(plan.kind)
+        return real(plan, *args)
+
+    engine._run_step = spy
+    for ctr in LAUNCH_COUNTERS.values():
+        ctr.n = 0
+    with _eager_steps() if eager else contextlib.nullcontext():
+        tid = engine.pool.register_thread()
+        reqs = [engine.submit(p * 3, 6) for p in SHARD_PROMPTS]
+        stats = engine.run(tid)
+    torch.cuda.synchronize()
+    assert stats["completed"] == len(reqs)
+    assert engine.pool.unreclaimed() == 0
+    del engine._run_step
+    return ([r.generated for r in reqs],
+            {k: ctr.n for k, ctr in LAUNCH_COUNTERS.items()}, set(kinds))
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_graph_steps_equal_eager(dev, kv_dtype):
+    """Decode, mixed and prefill steps replayed from their graphs emit the
+    eager steps' greedy tokens bitwise with the same launch counts, and
+    the engine holds one graph per signature."""
+    compiled = _smoke_engine(dev, kv_dtype=kv_dtype)
+    got = _serve_counted(compiled)
+    want = _serve_counted(_smoke_engine(dev, kv_dtype=kv_dtype), eager=True)
+    assert {"prefill", "mixed", "decode"} <= got[2] == want[2]
+    assert got[0] == want[0]
+    assert got[1] == want[1]
+    assert got[1]["int8" if kv_dtype else "float"] > 0
+    assert len(compiled._graphs) == compiled.compile_cache_size() > 0
+
+
+def test_pools_setter_and_clear_drop_graphs(dev):
+    """The ``pools`` setter drops shard 0's graphs (they write the old
+    pages) and keeps shard 1's; ``clear_compile_caches()`` drops every
+    graph and pool; a later run captures again."""
+    engine = _sharded_engine(dev, n_blocks=48, chunk_size=8)
+    tid = engine.pool.register_thread()
+    for p in SHARD_PROMPTS:
+        engine.submit(p * 3, 6)
+    engine.run(tid)
+    shards = {s for s, _ in engine._graphs}
+    assert shards == {0, 1}
+    n1 = sum(s == 1 for s, _ in engine._graphs)
+    engine.pools = engine.pools
+    assert {s for s, _ in engine._graphs} == {1}
+    assert len(engine._graphs) == n1
+    assert engine._graph_pools[0] is None
+    for p in SHARD_PROMPTS:
+        engine.submit(p[::-1] * 3, 6)
+    assert engine.run(tid)["completed"] == 2 * len(SHARD_PROMPTS)
+    assert {s for s, _ in engine._graphs} == {0, 1}
+    assert engine.clear_compile_caches()
+    assert not engine._graphs and engine.compile_cache_size() == 0
+    assert engine._graph_pools == [None, None]
+    reqs = [engine.submit(p, 4) for p in SHARD_PROMPTS]
+    engine.run(tid)
+    assert all(len(r.generated) == 4 for r in reqs)
+    assert {key for _, key in engine._graphs} == engine._shapes
+    assert engine.compile_cache_size() > 0
+
+
+def test_capture_while_another_thread_syncs(dev):
+    """While a worker captures a step's graph (under the dispatch lock),
+    another thread does what a second worker does meanwhile: waits on an
+    event of the shard's stream, runs cleanup and an era scan on the card
+    (which synchronizes its stream), and frees a pinned buffer copied on
+    the shard's stream.  Every capture survives, and the run emits the
+    eager run's tokens."""
+    from repro_torch.kernels import ops
+
+    want = _serve_counted(_smoke_engine(dev), eager=True)
+    engine = _smoke_engine(dev)
+    fired = []
+    sample = engine._sample
+
+    def second_worker(shard):
+        stream = engine._streams[shard]
+        done = torch.cuda.Event()
+        done.record(stream)
+        done.synchronize()
+        engine.pool.cleanup_all()
+        era = np.arange(4, dtype=np.int32)
+        mask = ops.can_delete_blocks_interval(era, era + 2, era[:2],
+                                              era[:2] + 1, device=dev)
+        with torch.cuda.stream(stream):
+            staged = torch.arange(64, dtype=torch.int32).pin_memory()
+            on_card = staged.to(dev, non_blocking=True)
+        done.record(stream)
+        done.synchronize()
+        del staged  # its free records an event on the shard's stream
+        return mask, on_card
+
+    def capturing_sample(step, shard, args):
+        if torch.cuda.is_current_stream_capturing():
+            out = []
+            th = threading.Thread(
+                target=lambda: out.append(second_worker(shard)))
+            th.start()
+            th.join(timeout=120)
+            fired.append(not th.is_alive() and len(out) == 1)
+        return sample(step, shard, args)
+
+    engine._sample = capturing_sample
+    got = _serve_counted(engine)
+    assert fired and all(fired)
+    assert len(fired) == len(engine._graphs)
+    assert got[0] == want[0] and got[1] == want[1]
 
 
 # ------------------------------------------ no host sync under the lock
