@@ -170,16 +170,23 @@ Phases, each printing its own line; any failure exits non-zero:
    (c) The slice: full-width,
    full-depth stablelm-3b in bf16 with f32 master weights and AdamW
    states, remat on, global batch 8 x 2048 in 8 microbatches, 6 steps from
-   ``PrefetchingLoader(SyntheticLMData)``: finite losses and grad norms,
-   every attention call on the kernel route (32 layers x 8 microbatches x
-   2 a step, remat recomputing) and 32 x 8 backward launches a step, all
-   on the tensor-core tile and none on the f32 tile, the prefetcher drained
-   after ``close``; ms/step, tokens/s, peak memory and
-   the share of 6 N D at the bf16 peak printed; then one more step under
-   torch.profiler: device time by kind and the idle share.  (d) The
-   restart drill at
-   the smoke config on CUDA (a failure injected at step 12 of 20, one
-   restart from the manifest), then ``python -m
+   ``PrefetchingLoader(SyntheticLMData)`` through ``Trainer``, whose first
+   step warms up and captures one CUDA graph that the others replay:
+   finite losses and grad norms, every attention call on the kernel route
+   (32 layers x 8 microbatches x 2 a step, remat recomputing) and 32 x 8
+   backward launches a step, all on the tensor-core tile and none on the
+   f32 tile, counted per replay, one graph, the prefetcher drained after
+   ``close``; ms/step, tokens/s, capture seconds, peak memory (allocated
+   and reserved) and the share of 6 N D at the bf16 peak printed; then
+   one more step under torch.profiler: device time by kind and the idle
+   share.  (e) The same 6 steps from the same seed under the trainer's
+   ``_eager_steps()``: losses and grad norms within 1e-4 relative of 8c's
+   ("bitwise" printed where they are), launches by kernel and variant
+   equal, 8c one signature; both runs' numbers printed.  (d) The restart
+   drill at the smoke config on CUDA (a failure injected at step 12 of 20,
+   one restart from the manifest), compiled (one signature and one graph
+   after the restore's new state) and then eager, the final states
+   within 1e-4 of each leaf's largest magnitude, then ``python -m
    repro_torch.launch.train --steps 20`` as a subprocess on CUDA.
 9. The mesh layer (``repro_torch.sharding``, ``launch.mesh``), once 8c's
    state is freed.  (a) ``kernels.can_delete_blocks`` (point
@@ -3431,8 +3438,9 @@ def train_f32_step(dev) -> dict:
     training path end to end.  Counts zeroed just before the steps and
     read just after: every backward launch on the f32 tile (one a layer
     and step), none on the tensor-core tile.  ms a step (the mean of all
-    but the first), then one more step profiled for the backward's share
-    of device time."""
+    but the first: the first step warms up and captures the trainer's
+    graph, the others replay it), then one more step profiled for the
+    backward's share of device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -3470,7 +3478,7 @@ def train_f32_step(dev) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trainer.run(state, iter([data.batch_at(F32_TRAIN_STEPS)]), steps=1)
         torch.cuda.synchronize()
-    share = print_device_time("8b'", prof, steady)
+    share, _ = print_device_time("8b'", prof, steady)
     n = cfg.n_layers * F32_TRAIN_STEPS
     want = {"backward": n, "backward cuda_core": n, "backward tile": 0}
     finite = all(math.isfinite(m["loss"]) for m in metrics)
@@ -3480,7 +3488,8 @@ def train_f32_step(dev) -> dict:
           f"losses {[round(m['loss'], 4) for m in metrics]}, counts "
           f"{counts} (want {want})")
     print(f"  8b': ms/step {[round(x, 2) for x in steps]} (mean after the "
-          f"first {steady:.2f}), flash backward "
+          f"first {steady:.2f}; the first runs eagerly, then the capture of "
+          f"{trainer._step_fn.capture_seconds:.2f} s), flash backward "
           f"{'not measured' if share is None else f'{share:.1%}'} of the "
           f"device's busy time on {gpu_name_and_limit()}", flush=True)
     del state, trainer
@@ -3488,22 +3497,24 @@ def train_f32_step(dev) -> dict:
     return dict(counts=counts, ms_per_step=steady, bwd_share=share)
 
 
-def train_slice(dev) -> dict:
-    """8(c): full-width, full-depth stablelm-3b, bf16 with f32 masters and
-    AdamW states, remat on, global batch 8 x 2048 in 8 microbatches, 6
-    steps from ``PrefetchingLoader(SyntheticLMData)``.  Counts zeroed just
-    before the steps and read just after; ms/step, tokens/s, peak memory
-    and the share of 6 N D at the bf16 peak printed; then one more step
-    profiled (``profile_train_step``)."""
+def train_run(dev, eager: bool = False) -> dict:
+    """8c's training: full-width, full-depth stablelm-3b, bf16 with f32
+    masters and AdamW states, remat on, global batch 8 x 2048 in 8
+    microbatches, 6 steps from ``PrefetchingLoader(SyntheticLMData)``
+    through ``Trainer``: compiled (the first step warms up and captures
+    the step's CUDA graph, the others replay it), or under the trainer's
+    ``_eager_steps()``.  Counts zeroed just before the steps and read just
+    after; then one more step profiled (device time by kind, idle share).
+    The state is freed before it returns."""
     from repro_torch.configs import get_config
     from repro_torch.data import PrefetchingLoader, SyntheticLMData
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import build_model, count_params
     from repro_torch.models import attention
     from repro_torch.train import AdamWConfig, Trainer
+    from repro_torch.train.trainer import _eager_steps
 
     cfg = get_config("stablelm-3b")
-    n_params = count_params(cfg)
     trainer = Trainer(build_model(cfg), AdamWConfig(lr=1e-4, warmup_steps=2,
                                                     total_steps=100),
                       device=dev)
@@ -3526,63 +3537,130 @@ def train_slice(dev) -> dict:
         metrics.append(m)
         stamps.append(time.perf_counter())
 
-    trainer.run(state, loader, steps=TRAIN_STEPS, on_metrics=on_metrics)
-    torch.cuda.synchronize()
-    counts = {k: ctr.n for k, ctr in counters.items()}
-    peak_bytes = torch.cuda.max_memory_allocated()
-    peak = peak_bytes / 2 ** 30
-    # the live state (params, m, v, step) and one step's batch on the card,
-    # for phase 10a
-    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
-                for t in _leaves(state)}
-    state_bytes = sum(storages.values())
-    batch_bytes = sum(np.asarray(v).nbytes for v in
-                      loader.data.batch_at(TRAIN_STEPS).values())
-    loader.close()
-    left = loader.unreclaimed()
-    steps = [float(x) for x in np.diff([t0] + stamps) * 1e3]
-    steady = float(np.mean(steps[1:]))
-    profile_train_step(trainer, state, loader.data.batch_at(TRAIN_STEPS),
-                       steady)
+    with _eager_steps() if eager else contextlib.nullcontext():
+        trainer.run(state, loader, steps=TRAIN_STEPS, on_metrics=on_metrics)
+        torch.cuda.synchronize()
+        counts = {k: ctr.n for k, ctr in counters.items()}
+        peak_bytes = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+        # the live state (params, m, v, step) and one step's batch on the
+        # card, for phase 10a
+        storages = {t.untyped_storage().data_ptr():
+                    t.untyped_storage().nbytes() for t in _leaves(state)}
+        batch_bytes = sum(np.asarray(v).nbytes for v in
+                          loader.data.batch_at(TRAIN_STEPS).values())
+        loader.close()
+        steps = [float(x) for x in np.diff([t0] + stamps) * 1e3]
+        steady = float(np.mean(steps[1:]))
+        _, idle = profile_train_step(trainer, state,
+                                     loader.data.batch_at(TRAIN_STEPS), steady,
+                                     "8e eager" if eager else "8c")
+    out = dict(counts=counts, ms_per_step=steady, steps_ms=steps,
+               peak_gib=peak_bytes / 2 ** 30, peak_bytes=peak_bytes,
+               reserved_gib=reserved, idle=idle,
+               state_bytes=sum(storages.values()), batch_bytes=batch_bytes,
+               n_params=count_params(cfg), left=loader.unreclaimed(),
+               capture_s=trainer._step_fn.capture_seconds,
+               cache_size=trainer._step_fn._cache_size(),
+               graphs=len(trainer._step_fn._graphs),
+               losses=[m["loss"] for m in metrics],
+               grad_norms=[m["grad_norm"] for m in metrics],
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (steady / 1e3),
+               per_step=cfg.n_layers * cfg.num_microbatches,
+               microbatches=cfg.num_microbatches)
+    del state, trainer
+    free_device_memory()
+    return out
+
+
+def _train_line(tag, run) -> None:
+    idle = ("not measured" if run["idle"] is None
+            else f"{run['idle']:.1%}")
+    print(f"  {tag}: ms/step {[round(x, 1) for x in run['steps_ms']]} "
+          f"(steady mean {run['ms_per_step']:.1f}), "
+          f"{run['tokens_per_s']:.1f} tokens/s, capture "
+          f"{run['capture_s']:.2f} s, peak allocated {run['peak_gib']:.2f} "
+          f"GiB, reserved {run['reserved_gib']:.2f} GiB, idle {idle} of one "
+          f"profiled step on {gpu_name_and_limit()}", flush=True)
+
+
+def train_slice(dev) -> dict:
+    """8(c): ``train_run`` compiled.  Limits: finite losses and grad norms,
+    every attention call on the kernel route (32 layers x 8 microbatches
+    x 2 a step with remat) and 32 x 8 backward launches a step, all on the
+    tensor-core tile, counted per replay; one graph; the prefetcher drained
+    after ``close``.  ms/step, tokens/s, capture seconds, peak memory
+    (allocated and reserved) and the share of 6 N D at the bf16 peak
+    printed."""
+    run = train_run(dev)
+    n_params, counts, steady = run["n_params"], run["counts"], \
+        run["ms_per_step"]
     tokens = TRAIN_BATCH * TRAIN_SEQ
     mfu = 6 * n_params * tokens / (steady / 1e3) / PEAK_OPS[torch.bfloat16]
-    per_step = cfg.n_layers * cfg.num_microbatches
+    per_step = run["per_step"]
     want = {"kernel": 2 * per_step * TRAIN_STEPS, "plain": 0,
             "forward": 2 * per_step * TRAIN_STEPS,
             "backward": per_step * TRAIN_STEPS,
             "backward tile": per_step * TRAIN_STEPS, "backward cuda_core": 0}
-    finite = all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
-                 for m in metrics)
-    ok = (finite and len(metrics) == TRAIN_STEPS and counts == want
-          and left == 0)
+    finite = all(math.isfinite(a) and math.isfinite(b)
+                 for a, b in zip(run["losses"], run["grad_norms"]))
+    ok = (finite and len(run["losses"]) == TRAIN_STEPS and counts == want
+          and run["left"] == 0 and run["cache_size"] == run["graphs"] == 1)
     phase(f"8c full-width stablelm-3b ({n_params} parameters) bf16 train, "
           f"f32 masters, remat, {TRAIN_BATCH} x {TRAIN_SEQ} in "
-          f"{cfg.num_microbatches} microbatches, {TRAIN_STEPS} steps", ok,
-          f"losses {[round(m['loss'], 4) for m in metrics]}, grad norms "
-          f"{[round(m['grad_norm'], 3) for m in metrics]}, counts {counts} "
-          f"(want {want}), prefetch unreclaimed after close {left}")
-    print(f"  8c: ms/step {[round(x, 1) for x in steps]} (steady mean "
-          f"{steady:.1f}), {tokens / (steady / 1e3):.1f} tokens/s, peak "
-          f"{peak:.2f} GiB, 6 N D share of the bf16 peak {mfu:.4f} on "
-          f"{gpu_name_and_limit()}", flush=True)
-    del state, trainer
-    free_device_memory()
-    return dict(counts=counts, ms_per_step=steady, peak_gib=peak,
-                peak_bytes=peak_bytes, state_bytes=state_bytes,
-                batch_bytes=batch_bytes, n_params=n_params,
-                losses=[m["loss"] for m in metrics])
+          f"{run['microbatches']} microbatches, {TRAIN_STEPS} steps, "
+          f"compiled", ok,
+          f"losses {[round(x, 4) for x in run['losses']]}, grad norms "
+          f"{[round(x, 3) for x in run['grad_norms']]}, counts {counts} "
+          f"(want {want}), graphs {run['graphs']}, signatures "
+          f"{run['cache_size']}, prefetch unreclaimed after close "
+          f"{run['left']}")
+    _train_line("8c", run)
+    print(f"  8c: 6 N D share of the bf16 peak {mfu:.4f}", flush=True)
+    return run
 
 
-def profile_train_step(trainer, state, batch, step_ms) -> None:
+def compiled_train_phase(dev, compiled: dict) -> None:
+    """8(e): 8c's training (the same seeded state, data and 6 steps) under
+    the trainer's ``_eager_steps()``, after 8c's compiled run (two
+    full-width states do not fit at once).  Limits: losses and grad norms
+    within 1e-4 relative per step (8b's limit; "bitwise" printed where
+    they are), launches by kernel and variant equal, and the compiled
+    run's ``_cache_size() == 1``.  Both runs' ms a step, tokens/s, capture
+    seconds, peak memory and idle share printed."""
+    eager = train_run(dev, eager=True)
+
+    def rel(a, b):
+        return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+    worst = max(rel(compiled["losses"], eager["losses"]),
+                rel(compiled["grad_norms"], eager["grad_norms"]))
+    bitwise = (compiled["losses"] == eager["losses"]
+               and compiled["grad_norms"] == eager["grad_norms"])
+    ok = (len(eager["losses"]) == len(compiled["losses"]) == TRAIN_STEPS
+          and worst <= 1e-4 and compiled["counts"] == eager["counts"]
+          and compiled["cache_size"] == 1 and eager["graphs"] == 0)
+    phase("8e 8c compiled vs eager (6 steps, same seed and data)", ok,
+          f"losses and grad norms largest relative difference {worst:.3e} "
+          f"(limit 1e-4){', bitwise' if bitwise else ''}; launches "
+          f"compiled {compiled['counts']} eager {eager['counts']}; compiled "
+          f"signatures {compiled['cache_size']}")
+    _train_line("8e compiled (8c)", compiled)
+    _train_line("8e eager", eager)
+
+
+def profile_train_step(trainer, state, batch, step_ms, tag="8c") -> tuple:
     """Where a training step's time goes: one more step under
     torch.profiler, device time by kind against the unprofiled steady
-    step; the device's idle share is 1 - busy / that step."""
+    step; the device's idle share is 1 - busy / that step.  Returns
+    (the flash backward's share of busy time, the idle share), None
+    where not measured."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trainer.run(state, iter([batch]), steps=1)
         torch.cuda.synchronize()
-    print_device_time("8c", prof, step_ms)
+    return print_device_time(tag, prof, step_ms)
 
 
 def device_time_by_kind(prof) -> tuple:
@@ -3616,17 +3694,17 @@ def device_time_by_kind(prof) -> tuple:
     return groups, names
 
 
-def print_device_time(tag, prof, step_ms) -> float:
+def print_device_time(tag, prof, step_ms) -> tuple:
     """Print one profiled step's device time by kind against an unprofiled
     step of ``step_ms``, its busy and idle shares and its top kernels;
-    returns the flash backward's share of the device's busy time (None
-    where the trace has no device time)."""
+    returns the flash backward's share of the device's busy time and the
+    idle share (None, None where the trace has no device time)."""
     groups, names = device_time_by_kind(prof)
     _, busy = _device_busy(prof)
     wall = step_ms / 1e3
     if busy == 0:
         print(f"  {tag} profile: device time not measured (no CUDA events)")
-        return None
+        return None, None
     shares = ", ".join(f"{k} {v / 1e6:.3f} s ({v / 1e6 / wall:.1%})"
                        for k, v in groups.items())
     print(f"  {tag} device time by kind (one profiled step) against the "
@@ -3636,16 +3714,14 @@ def print_device_time(tag, prof, step_ms) -> float:
     top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
     print(f"  {tag} top device kernels: " + "; ".join(
         f"{k} {v / 1e3:.1f} ms" for k, v in top), flush=True)
-    return groups["flash backward"] / 1e6 / busy
+    return groups["flash backward"] / 1e6 / busy, 1 - busy / wall
 
 
-def restart_drill(dev) -> None:
-    """8(d): the smoke config on CUDA, a sync ``Checkpointer``, an injected
-    failure at step 12 of 20: ``run_with_restarts`` reaches step 20 with
-    one restart and at most one unreclaimed snapshot generation; then the
-    training CLI as a subprocess on CUDA."""
-    import tempfile
-
+def _drill(dev, directory: str) -> dict:
+    """The restart drill of 8(d) with a sync ``Checkpointer`` in
+    ``directory``: the smoke config, 2 microbatches, an injected failure at
+    step 12 of 20, ``run_with_restarts`` in chunks of 10 (the restore at
+    step 10 hands the trainer new tensors)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import SyntheticLMData
     from repro_torch.models import build_model
@@ -3666,25 +3742,58 @@ def restart_drill(dev) -> None:
             yield data.batch_at(s)
             s += 1
 
+    ckpt = Checkpointer(directory, sync=True)
+    trainer = Trainer(build_model(cfg), AdamWConfig(lr=1e-2, warmup_steps=2,
+                                                    total_steps=50),
+                      checkpointer=ckpt, checkpoint_every=5, device=dev)
+    state = trainer.init(torch.Generator(device=dev).manual_seed(SEED))
+    restarts = []
+    state = run_with_restarts(trainer, state, batches, total_steps=20,
+                              chunk=10, on_restart=lambda n, e:
+                              restarts.append(str(e)))
+    return dict(step=int(state["opt"]["step"]), restarts=restarts,
+                left=ckpt.unreclaimed_generations(),
+                on_card=all(x.is_cuda for x in _leaves(state["params"])),
+                leaves=[x.detach().cpu() for x in _leaves(state)],
+                cache_size=trainer._step_fn._cache_size(),
+                graphs=len(trainer._step_fn._graphs))
+
+
+def restart_drill(dev) -> None:
+    """8(d): the drill (``_drill``) compiled: ``run_with_restarts`` reaches
+    step 20 with one restart and at most one unreclaimed snapshot
+    generation, one signature and one graph (the old state's dropped at
+    the restore); then the drill under the trainer's ``_eager_steps()``,
+    whose final parameters, m, v and step the compiled drill's must match
+    within 1e-4 of each leaf's largest magnitude (bitwise printed); then
+    the training CLI as a subprocess on CUDA."""
+    import tempfile
+
+    from repro_torch.train.trainer import _eager_steps
+
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = Checkpointer(os.path.join(tmp, "drill"), sync=True)
-        trainer = Trainer(build_model(cfg), AdamWConfig(lr=1e-2,
-                                                        warmup_steps=2,
-                                                        total_steps=50),
-                          checkpointer=ckpt, checkpoint_every=5, device=dev)
-        state = trainer.init(torch.Generator(device=dev).manual_seed(SEED))
-        restarts = []
-        state = run_with_restarts(trainer, state, batches, total_steps=20,
-                                  chunk=10, on_restart=lambda n, e:
-                                  restarts.append(str(e)))
-        step = int(state["opt"]["step"])
-        left = ckpt.unreclaimed_generations()
-        on_card = all(x.is_cuda for x in _leaves(state["params"]))
-        phase("8d restart drill on CUDA (smoke config)",
-              step == 20 and restarts == ["injected node failure"]
-              and left <= 1 and on_card,
-              f"step {step}, restarts {restarts}, unreclaimed generations "
-              f"{left}, state on the card {on_card}")
+        got = _drill(dev, os.path.join(tmp, "drill"))
+        phase("8d restart drill on CUDA (smoke config), compiled",
+              got["step"] == 20 and got["restarts"] == ["injected node failure"]
+              and got["left"] <= 1 and got["on_card"]
+              and got["cache_size"] == got["graphs"] == 1,
+              f"step {got['step']}, restarts {got['restarts']}, unreclaimed "
+              f"generations {got['left']}, state on the card "
+              f"{got['on_card']}, signatures {got['cache_size']}, graphs "
+              f"{got['graphs']}")
+        with _eager_steps():
+            want = _drill(dev, os.path.join(tmp, "eager"))
+        worst = max(float((a.double() - b.double()).abs().max())
+                    / max(float(b.double().abs().max()), 1e-30)
+                    for a, b in zip(got["leaves"], want["leaves"]))
+        bitwise = all(torch.equal(a, b)
+                      for a, b in zip(got["leaves"], want["leaves"]))
+        phase("8d the compiled drill's final state vs an eager drill's",
+              want["step"] == 20 and want["restarts"] == got["restarts"]
+              and want["graphs"] == 0 and worst <= 1e-4,
+              f"largest difference over each leaf's largest magnitude "
+              f"{worst:.3e} (limit 1e-4){', bitwise' if bitwise else ''}, "
+              f"{len(got['leaves'])} leaves")
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         proc = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.train", "--steps",
@@ -3707,6 +3816,11 @@ def train_phase(dev) -> dict:
     train_step_matches_cpu(dev)
     rows["train f32"] = guarded("8b' f32 training", train_f32_step, dev) or {}
     rows["train"] = guarded("8c training slice", train_slice, dev) or {}
+    if rows["train"]:
+        t8e = time.perf_counter()
+        guarded("8e compiled training vs eager", compiled_train_phase, dev,
+                rows["train"])
+        print(f"  phase 8e: {time.perf_counter() - t8e:.1f} s", flush=True)
     restart_drill(dev)
     print(f"  phase 8: {time.perf_counter() - t8:.1f} s", flush=True)
     return rows

@@ -61,9 +61,10 @@ class Counter:
     """Launch count of one kernel: an integer ``n``, bumped by its wrapper
     once per launch (``bump``) and nowhere else.  ``bump`` takes a lock:
     serving workers launch from several threads, and a bare ``+=`` there
-    can lose an update.  Inside a CUDA-graph capture on the calling thread
-    (``capturing``) nothing is launched, so a bump goes to the capture's
-    tally instead, and each replay of the graph adds it."""
+    can lose an update.  Inside a CUDA-graph capture (``capturing``: one
+    open on the calling thread, or on the CUDA stream it launches on)
+    nothing is launched, so a bump goes to the capture's tally instead,
+    and each replay of the graph adds it."""
 
     __slots__ = ("n", "_lock")
 
@@ -72,7 +73,7 @@ class Counter:
         self._lock = threading.Lock()
 
     def bump(self) -> None:
-        tally = getattr(_capture, "tally", None)
+        tally = _open_tally()
         if tally is not None:
             tally.counts[self] = tally.counts.get(self, 0) + 1
         else:
@@ -103,26 +104,66 @@ class Tally:
 
 
 _capture = threading.local()
+#: the tallies of the captures open on a CUDA stream, by the stream's handle
+#: (``capturing(stream)``)
+_stream_tallies: dict = {}
+_stream_lock = threading.Lock()
+
+
+def _stream_key():
+    """The handle of the calling thread's current CUDA stream while that
+    stream is capturing, else None."""
+    import torch
+
+    if not torch.cuda.is_current_stream_capturing():
+        return None
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _open_tally() -> Optional["Tally"]:
+    """The tally a launch made now belongs to: the capture open on this
+    thread, else the one open on the stream this thread launches on (a
+    thread that did not open it, as autograd's device thread runs the
+    backward of a captured forward on the forward's stream), else None."""
+    tally = getattr(_capture, "tally", None)
+    if tally is None and _stream_tallies:
+        key = _stream_key()
+        if key is not None:
+            tally = _stream_tallies.get(key)
+    return tally
 
 
 @contextlib.contextmanager
-def capturing():
-    """Tally, rather than count, the launches this thread makes inside the
-    block (a CUDA-graph capture, which launches nothing); yields the
-    ``Tally``.  Other threads keep counting."""
+def capturing(stream=None):
+    """Tally, rather than count, the launches made inside the block (a
+    CUDA-graph capture, which launches nothing); yields the ``Tally``.
+    The launches of this thread go to it, and, with ``stream`` (the CUDA
+    stream being captured), those of any thread launching on that stream
+    while it captures.  Other threads keep counting."""
     outer = getattr(_capture, "tally", None)
     tally = _capture.tally = Tally()
+    key = None if stream is None else stream.cuda_stream
+    if key is not None:
+        with _stream_lock:
+            outer_on_stream = _stream_tallies.get(key)
+            _stream_tallies[key] = tally
     try:
         yield tally
     finally:
         _capture.tally = outer
+        if key is not None:
+            with _stream_lock:
+                if outer_on_stream is None:
+                    del _stream_tallies[key]
+                else:
+                    _stream_tallies[key] = outer_on_stream
 
 
 def at_replay(fn) -> None:
-    """Call ``fn()`` now, or, inside a capture on this thread, at each
+    """Call ``fn()`` now, or, inside a capture (``capturing``), at each
     replay of the graph being captured (an observer of launches keeps its
     records per launch this way)."""
-    tally = getattr(_capture, "tally", None)
+    tally = _open_tally()
     if tally is None:
         fn()
     else:
@@ -130,10 +171,36 @@ def at_replay(fn) -> None:
 
 
 def launched(counter: Counter) -> int:
-    """``counter.n`` plus what a capture open on this thread has tallied of
-    it: the launches this thread has asked for so far."""
-    tally = getattr(_capture, "tally", None)
+    """``counter.n`` plus what the capture open for this thread
+    (``capturing``) has tallied of it: the launches asked for so far."""
+    tally = _open_tally()
     return counter.n + (0 if tally is None else tally.counts.get(counter, 0))
+
+
+#: how many ``eager_steps()`` blocks are open, in any thread
+_eager_depth = [0]
+_eager_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """Every compiled step (the serving engine's, the trainer's) runs
+    eagerly on the card inside the block, capturing and replaying no
+    graph: the plain version of the compiled steps, as
+    ``jax.disable_jit()`` is the reference's.  For the card's checks that
+    hold graphs against it; process-wide, so it covers worker threads."""
+    with _eager_lock:
+        _eager_depth[0] += 1
+    try:
+        yield
+    finally:
+        with _eager_lock:
+            _eager_depth[0] -= 1
+
+
+def eager() -> bool:
+    """Whether an ``eager_steps()`` block is open."""
+    return _eager_depth[0] > 0
 
 
 def _nvcc() -> str:

@@ -93,25 +93,8 @@ __all__ = ["ServeEngine"]
 #: held (an in-flight step) — drain returns instead of spinning.
 DRAIN_ERA_BOUND = 4
 
-#: how many ``_eager_steps()`` blocks are open, in any thread
-_eager_depth = [0]
-_eager_lock = threading.Lock()
-
-
-@contextlib.contextmanager
-def _eager_steps():
-    """Every engine dispatches its steps eagerly on the card inside the
-    block, capturing and replaying no graph: the plain version of the
-    compiled step, as ``jax.disable_jit()`` is the reference's.  For the
-    card's checks that hold graphs against it; process-wide, so it covers
-    worker threads."""
-    with _eager_lock:
-        _eager_depth[0] += 1
-    try:
-        yield
-    finally:
-        with _eager_lock:
-            _eager_depth[0] -= 1
+#: the card runs the eager steps inside it (``kernels.build.eager_steps``)
+_eager_steps = build.eager_steps
 
 
 class _StepInputs:
@@ -489,7 +472,7 @@ class ServeEngine:
             if stream is None:  # the CPU runs the eager step
                 return self._sample(step, s,
                                     self._inputs(arrays))[:b].numpy()
-            if _eager_depth[0]:
+            if build.eager():
                 ids = self._sample(step, s, self._inputs(arrays))
             else:
                 ids = self._compiled(s, step, key, arrays)

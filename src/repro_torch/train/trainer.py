@@ -40,6 +40,25 @@ casts the floating aliases to ``cfg.dtype`` once per microbatch before the
 forward, so on a mesh every weight gather moves bf16; gradients flow back
 to the f32 accumulators through the cast.
 
+The compiled step, the counterpart of the reference's
+``jax.jit(make_train_step(...))`` (``Trainer._step_fn``): on the card each
+step signature (the tree paths, shapes and dtypes of every state leaf and
+batch key, as jax keys its cache by the inputs' avals) is captured once as
+a CUDA graph, forward, backward and AdamW, and replayed from then on.  The
+batch goes into static device buffers of the signature first (through a
+fresh pinned buffer each step); the first dispatch of a signature runs
+eagerly on them (the warm-up, and the step's result), then the capture on
+a stream of its own into the trainer's graph pool.  A graph writes the
+state it was captured on, so the graphs are kept for one state (the
+identity of its leaves): a new one (``Checkpointer.restore``'s) drops them
+and their pool and is captured anew.  Metrics come back as copies made
+after the replay.  A capture or replay that fails raises; nothing falls
+back to the eager step.  ``_eager_steps()`` runs the eager step on the card
+instead (``jax.disable_jit``'s counterpart); the CPU always does, and so
+does a state or batch of DTensors (a mesh: its NCCL step is not captured).
+Python-level choices inside the step (``perf_flags.FLAGS``) are taken at
+capture, as jax takes them at trace time.
+
 The reference names a ``compressed_dp`` mode only in docstrings
 (``repro/train/trainer.py:11-13``, ``sharding/gradient_compression.py``);
 its ``make_train_step`` has no such mode, so the port adds none.  The
@@ -48,17 +67,23 @@ int8 all-reduce is ``sharding.gradient_compression.compressed_all_reduce``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import gc
+import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels import build
 from repro_torch.models.loops import counted_range
 from repro_torch.sharding.axes import is_dtensor
 
-from .optim import AdamWConfig, adamw_init, adamw_update, tree_leaves, tree_map
+from .optim import (AdamWConfig, adamw_init, adamw_update, tree_items,
+                    tree_leaves, tree_map)
 
 TrainState = Dict[str, Any]  # {"params", "opt"}
 
@@ -265,9 +290,156 @@ def make_train_step(model, opt_cfg: AdamWConfig,
     return train_step
 
 
+#: the card runs the eager step inside it (``kernels.build.eager_steps``,
+#: which the serving engine's steps follow too)
+_eager_steps = build.eager_steps
+
+
+def _as_tensor(x):
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+
+
+def _signature(state: TrainState, batch: Dict[str, torch.Tensor]) -> tuple:
+    """The key of a step: the tree path, shape and dtype of every state
+    leaf and batch key (jax's cache key, the inputs' avals)."""
+    return (tuple((path, tuple(x.shape), x.dtype)
+                  for path, x in tree_items(state)),
+            tuple((k, tuple(v.shape), v.dtype)
+                  for k, v in sorted(batch.items())))
+
+
+class _StaticBatch:
+    """A compiled step's batch: one device buffer per key, at its shape and
+    dtype, that the graph reads.  ``load`` copies one step's batch in on
+    the current stream, a host array through a fresh pinned buffer (a copy
+    still queued for an earlier step never reads a buffer refilled for a
+    later one)."""
+
+    def __init__(self, batch: Dict[str, torch.Tensor], device):
+        self.tensors = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+                        for k, v in batch.items()}
+
+    def load(self, batch: Dict[str, torch.Tensor]) -> None:
+        for k, dst in self.tensors.items():
+            src = batch[k]
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise ValueError(f"batch key {k!r} of {src.dtype} "
+                                 f"{tuple(src.shape)}: the graph was captured "
+                                 f"for {dst.dtype} {tuple(dst.shape)}")
+            if dst.is_cuda and not src.is_cuda:
+                host = torch.empty(src.shape, dtype=src.dtype,
+                                   pin_memory=True)
+                src = host.copy_(src)
+            dst.copy_(src, non_blocking=True)
+
+
+class _Graph:
+    """One captured step: the graph, its static batch and metrics, and the
+    launches its capture tallied (added at each replay)."""
+
+    __slots__ = ("graph", "inputs", "metrics", "tally")
+
+    def __init__(self, graph, inputs, metrics, tally):
+        self.graph, self.inputs = graph, inputs
+        self.metrics, self.tally = metrics, tally
+
+
+class _CompiledStep:
+    """``make_train_step``'s step compiled as the reference's ``jax.jit`` of
+    it is (see the module docstring): ``(state, batch) -> (state,
+    metrics)``; ``_cache_size()`` counts the signatures dispatched, as
+    jax's jitted function does."""
+
+    def __init__(self, step: Callable, device: torch.device):
+        self._step = step
+        self._device = device
+        self._keys: set = set()
+        self._graphs: Dict[tuple, _Graph] = {}
+        self._state: Optional[list] = None  # (weakref, data_ptr) per leaf
+        self._pool = None
+        self._stream = None
+        self.capture_seconds = 0.0
+
+    def _cache_size(self) -> int:
+        return len(self._keys)
+
+    def __call__(self, state: TrainState, batch: Dict[str, Any]):
+        tensors = {k: _as_tensor(v) for k, v in batch.items()}
+        key = _signature(state, tensors)
+        self._keys.add(key)
+        leaves = tree_leaves(state)
+        if (self._device.type != "cuda" or build.eager()
+                or any(map(is_dtensor, leaves + list(tensors.values())))):
+            return self._step(state, batch)
+        if not self._captured_on(leaves):
+            self._graphs.clear()  # they write the old state's storage
+            self._pool = None
+            self._state = [(weakref.ref(x), x.data_ptr()) for x in leaves]
+        graph = self._graphs.get(key)
+        if graph is None:
+            return self._capture(key, state, tensors)
+        graph.inputs.load(tensors)
+        graph.graph.replay()
+        graph.tally.replay()
+        return state, {k: v.clone() for k, v in graph.metrics.items()}
+
+    def _captured_on(self, leaves: list) -> bool:
+        """Whether ``leaves`` are the tensors, at the storage, the graphs
+        were captured on."""
+        return (self._state is not None and len(self._state) == len(leaves)
+                and all(ref() is x and ptr == x.data_ptr()
+                        for (ref, ptr), x in zip(self._state, leaves)))
+
+    def _capture(self, key: tuple, state: TrainState,
+                 batch: Dict[str, torch.Tensor]):
+        """The first dispatch of ``key`` on this state: the eager step on the
+        static batch on the capture stream (its result is the step's; it
+        also sets up what a capture must not: the kernel library, cuBLAS's
+        workspaces for the stream), then the capture into the graph pool
+        with the cached blocks of the warm-up returned to the card first.
+        Launches in the capture are tallied, those autograd's device thread
+        makes for it too (``build.capturing(stream)``); each replay adds
+        the tally."""
+        dev = self._device
+        inputs = _StaticBatch(batch, dev)
+        inputs.load(batch)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=dev)
+        stream, current = self._stream, torch.cuda.current_stream(dev)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            state, metrics = self._step(state, inputs.tensors)
+        current.wait_stream(stream)
+        for v in metrics.values():
+            v.record_stream(current)
+        t0 = time.perf_counter()
+        torch.cuda.synchronize(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        g = torch.cuda.CUDAGraph()
+        with build.capturing(stream) as tally, torch.cuda.stream(stream):
+            g.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+            try:
+                _, static = self._step(state, inputs.tensors)
+            except BaseException:
+                with contextlib.suppress(Exception):
+                    g.capture_end()  # ends the capture; the step's error
+                raise                # is the one to report
+            g.capture_end()
+        current.wait_stream(stream)
+        self._graphs[key] = _Graph(g, inputs, static, tally)
+        self.capture_seconds += time.perf_counter() - t0
+        return state, metrics
+
+
 @dataclasses.dataclass
 class Trainer:
-    """Minimal driver used by the CLI and the fault-tolerance drill."""
+    """Minimal driver used by the CLI and the fault-tolerance drill.  Its
+    step (``_step_fn``) is the compiled one (the module docstring): on the
+    card one CUDA graph per step signature, replayed; on the CPU, and for
+    DTensor states, the eager ``make_train_step``."""
 
     model: Any
     opt_cfg: AdamWConfig
@@ -277,7 +449,8 @@ class Trainer:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        self._step_fn = make_train_step(self.model, self.opt_cfg)
+        self._step_fn = _CompiledStep(
+            make_train_step(self.model, self.opt_cfg), self.device)
 
     def init(self, generator: torch.Generator) -> TrainState:
         return init_train_state(self.model, generator, self.opt_cfg,

@@ -36,6 +36,11 @@ the eager steps' tokens and launch counts bitwise, with bf16 and int8
 pages, over decode, mixed and prefill steps; the ``pools`` setter and
 ``clear_compile_caches()`` drop the graphs; a capture holds while another
 thread waits on the shard's stream, scans eras and frees pinned memory.
+The trainer's compiled step (one CUDA graph per step signature) leaves
+the eager step's parameters, optimizer state and metrics at 1 and 2
+microbatches with and without remat, with its launch counts; its metrics
+are copies; a restored state drops the old graph and captures anew; a
+capture that fails raises.
 """
 
 import math
@@ -1478,6 +1483,180 @@ def test_train_step_on_the_card(dev, remat):
                                   tree_items(base)):
         assert p.grad is None and p.is_cuda
         assert not torch.equal(p.cpu(), p0), path
+
+
+# ------------------------------------------ the trainer's compiled step
+def _train_counters() -> dict:
+    """The flash forward's and backward's launch counters, by route."""
+    from repro_torch.models import attention
+
+    return {"kernel": attention.FLASH_ROUTES["kernel"],
+            "plain": attention.FLASH_ROUTES["plain"],
+            "forward": flash_attention.LAUNCHES,
+            "backward": flash_attention.BWD_LAUNCHES,
+            **{f"backward {k}": c
+               for k, c in flash_attention.BWD_VARIANT_LAUNCHES.items()}}
+
+
+def _smoke_trainer(dev, n=1, remat=False, **kw):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, Trainer
+
+    cfg = get_smoke_config("stablelm-3b").scaled(num_microbatches=n,
+                                                 remat=remat)
+    return Trainer(build_model(cfg), AdamWConfig(lr=1e-2, warmup_steps=2,
+                                                 total_steps=50),
+                   device=dev, **kw)
+
+
+def _smoke_data(trainer):
+    from repro_torch.data import SyntheticLMData
+
+    return SyntheticLMData(trainer.model.cfg.vocab_size, 24, 4)
+
+
+def _train_counted(dev, n, remat, eager, steps=5):
+    """``steps`` Trainer steps of the smoke stablelm-3b from seed 0, compiled
+    or under ``_eager_steps()``, the launch counts zeroed just before.
+    Returns (trainer, state, metrics, counts)."""
+    import contextlib
+
+    from repro_torch.train.trainer import _eager_steps
+
+    trainer = _smoke_trainer(dev, n, remat)
+    state = trainer.init(torch.Generator(device=dev).manual_seed(0))
+    counters = _train_counters()
+    for ctr in counters.values():
+        ctr.n = 0
+    metrics = []
+    with _eager_steps() if eager else contextlib.nullcontext():
+        state = trainer.run(state, _smoke_data(trainer).stream(0),
+                            steps=steps,
+                            on_metrics=lambda i, m: metrics.append(m))
+    torch.cuda.synchronize()
+    return trainer, state, metrics, {k: c.n for k, c in counters.items()}
+
+
+def _state_leaves(state):
+    from repro_torch.train.optim import tree_leaves
+
+    return [x.detach().cpu() for x in tree_leaves(state)]
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("n", [1, 2])
+def test_compiled_trainer_equals_eager(dev, n, remat):
+    """Five steps replayed from one CUDA graph leave the parameters, m, v
+    and step, and give the metrics, of five eager steps: bitwise where two
+    eager runs are bitwise, else within 1e-5; the flash forward and
+    backward launch as often (each replay adds what its capture tallied,
+    the backward's launches from autograd's device thread included), one
+    graph per signature."""
+    trainer, state, metrics, counts = _train_counted(dev, n, remat, False)
+    want = _train_counted(dev, n, remat, True)
+    again = _train_counted(dev, n, remat, True)
+    got, ref, ref2 = (_state_leaves(x) for x in (state, want[1], again[1]))
+    bitwise = (all(torch.equal(a, b) for a, b in zip(ref, ref2))
+               and want[2] == again[2])
+    if bitwise:
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        assert metrics == want[2]
+    else:
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        for m, w in zip(metrics, want[2]):
+            for k in w:
+                assert m[k] == pytest.approx(w[k], rel=1e-5), k
+    layers = trainer.model.cfg.n_layers
+    per_step = layers * n
+    assert counts == want[3]
+    assert counts["forward"] == counts["kernel"] == 5 * per_step * (
+        2 if remat else 1)
+    assert counts["backward"] == counts["backward cuda_core"] == 5 * per_step
+    assert counts["plain"] == 0
+    step_fn = trainer._step_fn
+    assert step_fn._cache_size() == len(step_fn._graphs) == 1
+    (graph,) = step_fn._graphs.values()
+    assert graph.tally.counts[flash_attention.BWD_LAUNCHES] == per_step
+
+
+def test_compiled_metrics_are_copies(dev):
+    """Each step's returned metrics stay as they were after the next step
+    (the graph's own outputs are overwritten at each replay)."""
+    trainer = _smoke_trainer(dev)
+    state = trainer.init(torch.Generator(device=dev).manual_seed(0))
+    it = _smoke_data(trainer).stream(0)
+    out = []
+    for _ in range(4):
+        state, m = trainer._step_fn(state, next(it))
+        out.append((m, {k: v.clone() for k, v in m.items()}))
+    torch.cuda.synchronize()
+    assert len(trainer._step_fn._graphs) == 1
+    for m, snap in out:
+        assert all(torch.equal(m[k], snap[k]) for k in snap)
+    losses = [float(m["loss"]) for m, _ in out]
+    assert len(set(losses)) == len(losses), losses
+
+
+def test_compiled_trainer_after_restore(dev, tmp_path):
+    """``Checkpointer.restore`` returns new tensors: the compiled step drops
+    the graph of the old state (nothing keeps it alive) and captures anew,
+    ``_cache_size()`` unchanged, and trains the restored state to what the
+    eager step trains it to."""
+    import gc
+    import weakref
+
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.optim import tree_leaves
+    from repro_torch.train.trainer import _eager_steps
+
+    ckpt = Checkpointer(str(tmp_path / "ck"), sync=True)
+    trainer = _smoke_trainer(dev, checkpointer=ckpt, checkpoint_every=2)
+    data = _smoke_data(trainer)
+    state = trainer.init(torch.Generator(device=dev).manual_seed(0))
+    state = trainer.run(state, data.stream(0), steps=3)
+    size = trainer._step_fn._cache_size()
+    # the graph's own metrics, in its pool: gone with the graph
+    old = weakref.ref(next(iter(trainer._step_fn._graphs.values()))
+                      .metrics["loss"])
+    restored, start = ckpt.restore(state), ckpt.restore(state)
+    assert int(restored["opt"]["step"]) == 2
+    first = weakref.ref(tree_leaves(state)[0])
+    del state
+    restored = trainer.run(restored, data.stream(2), steps=3)
+    gc.collect()
+    assert old() is None and first() is None
+    assert trainer._step_fn._cache_size() == size == 1
+    assert len(trainer._step_fn._graphs) == 1
+    with _eager_steps():
+        want = _smoke_trainer(dev).run(start, data.stream(2), steps=3)
+    for a, b in zip(_state_leaves(restored), _state_leaves(want)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert int(restored["opt"]["step"]) == 5
+
+
+def test_failed_train_capture_raises(dev):
+    """A step the capture refuses (a host sync in it) raises at its first
+    dispatch, after its eager warm-up; nothing falls back, no graph is
+    kept, and the card goes on working."""
+    trainer = _smoke_trainer(dev)
+    state = trainer.init(torch.Generator(device=dev).manual_seed(0))
+    real = trainer._step_fn._step
+
+    def syncing(state, batch):
+        state, metrics = real(state, batch)
+        float(metrics["loss"])  # a host sync: fine eagerly, not captured
+        return state, metrics
+
+    trainer._step_fn._step = syncing
+    batch = _smoke_data(trainer).batch_at(0)
+    with pytest.raises(RuntimeError):
+        trainer._step_fn(state, batch)
+    assert not trainer._step_fn._graphs
+    torch.cuda.synchronize()
+    assert int(state["opt"]["step"]) == 1
+    assert torch.isfinite(torch.ones(4, device=dev).sum())
 
 
 # ------------------------------------------------- point scan, mesh, merge
