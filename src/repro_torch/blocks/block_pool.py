@@ -33,6 +33,7 @@ from __future__ import annotations
 import threading
 from typing import Callable, List, Optional
 
+from repro_torch import obs
 from repro_torch.core import Block, make_scheme
 from repro_torch.core.atomics import INF_ERA, AtomicInt, AtomicRef, PtrView
 
@@ -314,12 +315,13 @@ class BlockPool:
         if backend is None:
             backend = ("cuda" if use_kernel else
                        self.cleanup_backend if use_kernel is None else "numpy")
-        before = smr.free_count[tid]
-        if len(smr.retire_lists[tid]) < threshold or \
-                not smr.supports_batched_cleanup:
-            smr.flush(tid)
-            return smr.free_count[tid] - before
-        return smr.cleanup_batch(tid, backend)
+        with obs.span("pool.cleanup"):
+            before = smr.free_count[tid]
+            if len(smr.retire_lists[tid]) < threshold or \
+                    not smr.supports_batched_cleanup:
+                smr.flush(tid)
+                return smr.free_count[tid] - before
+            return smr.cleanup_batch(tid, backend)
 
     def cleanup_all(self, *, backend: Optional[str] = None) -> int:
         """Cross-thread batched drain: EVERY thread's retire list, one scan.

@@ -54,6 +54,8 @@ import itertools
 import threading
 from typing import List, Optional, Sequence, Tuple
 
+from repro_torch import obs
+
 from .block_pool import KVBlock
 
 __all__ = ["PrefixCache"]
@@ -151,7 +153,7 @@ class PrefixCache:
         """
         nb = min(self._max_insert_blocks(prompt), len(blocks))
         added = 0
-        with self._lock:
+        with obs.span("prefix.insert"), self._lock:
             for depth in range(1, nb + 1):
                 key = self._key(prompt, depth, shard)
                 if key in self._entries:

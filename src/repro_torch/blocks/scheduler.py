@@ -53,6 +53,11 @@ most one worker at a time (``Request.inflight``); eviction never targets a
 request whose step is in flight.  Stats are kept per worker — each worker
 increments only its own dict (single-writer, no lock, no lost updates) —
 and merged at aggregation time by the ``stats`` property.
+
+Spans (``repro_torch.obs``): ``sched.tick`` and ``sched.complete``, under
+which ``table.release`` (a finished request's pages), ``prefix.insert`` and
+the pool's ``pool.cleanup``.  Each request is stamped at its first admission
+(``t_admit``) and its first prefill chunk planned (``t_prefill``).
 """
 
 from __future__ import annotations
@@ -66,6 +71,8 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from repro_torch import obs
+
 from .block_pool import PoolExhausted
 from .block_table import BlockTableRef
 
@@ -78,7 +85,10 @@ STAT_KEYS = ("admitted", "completed", "evictions", "batch_evictions",
              "prefix_hits", "prefix_hit_tokens", "prefix_evictions",
              "cancelled", "cancelled_tokens", "cancelled_blocks",
              "failed", "failed_tokens",
-             "crash_requeues", "crash_wasted_tokens")
+             "crash_requeues", "crash_wasted_tokens",
+             "tokens_live", "tokens_computed",
+             "decode_dispatches", "decode_ns", "mixed_dispatches", "mixed_ns",
+             "prefill_dispatches", "prefill_ns")
 
 #: pseudo worker id for stats written by non-worker threads (the serving
 #: edge calling ``cancel``); writes happen under the scheduler lock, so
@@ -135,8 +145,13 @@ class Request:
     prefix_checked: bool = False
     # latency stamps (time.monotonic): TTFT = t_first - t_submit,
     # TPOT = (t_last - t_first) / (len(generated) - 1); max_gap is the
-    # WORST inter-token gap — the starvation symptom TPOT means hide
+    # WORST inter-token gap — the starvation symptom TPOT means hide.
+    # t_admit (first entry into the active set) and t_prefill (first
+    # prefill chunk planned) split TTFT into queue wait, wait for a chunk
+    # and the rest; an evicted request keeps both
     t_submit: float = 0.0
+    t_admit: Optional[float] = None
+    t_prefill: Optional[float] = None
     t_first: Optional[float] = None
     t_last: Optional[float] = None
     max_gap: float = 0.0
@@ -271,6 +286,18 @@ class Scheduler:
                 tid, {k: 0 for k in STAT_KEYS})
         return st
 
+    def count_step(self, tid: int, kind: str, live: int, computed: int,
+                   ns: int) -> None:
+        """Add one dispatched step of ``kind`` to worker ``tid``'s stats:
+        its live rows' query tokens (``live``), the tokens its padded rows
+        and columns compute (``computed``), and the nanoseconds from its
+        dispatch to its sampled ids on the host (``ns``)."""
+        st = self._wstats(tid)
+        st["tokens_live"] += live
+        st["tokens_computed"] += computed
+        st[kind + "_dispatches"] += 1
+        st[kind + "_ns"] += ns
+
     @property
     def stats(self) -> Dict[str, int]:
         """Merged view over the per-worker stat dicts (race-free: each dict
@@ -362,7 +389,7 @@ class Scheduler:
         on different shards execute concurrently).  Shards are tried
         starting from the caller's affinity (``tid % n_shards``).
         """
-        with self._lock:
+        with obs.span("sched.tick"), self._lock:
             # drop cancelled requests FIRST: rows excluded from this (and
             # every later) plan, their pages released through the normal
             # refcount/era path before any new allocation competes for them
@@ -518,6 +545,8 @@ class Scheduler:
                     self.pool, tid,
                     shard=req.shard if self.n_shards > 1 else None)
             req.state = "active"
+            if req.t_admit is None:
+                req.t_admit = time.monotonic()
             self.active.append(req)
             stats["admitted"] += 1
             if time.monotonic() > deadline:
@@ -762,6 +791,8 @@ class Scheduler:
                             shard: int, stats: Dict[str, int]) -> StepPlan:
         ctx = req.length
         req.inflight = True
+        if req.t_prefill is None:
+            req.t_prefill = time.monotonic()
         snap = req.table.current()  # protected snapshot
         ids = snap.block_ids
         tables = np.zeros((1, len(ids)), np.int32)
@@ -803,6 +834,8 @@ class Scheduler:
             lengths[i] = req.length + 1
         ctx = pre.length
         pre.inflight = True
+        if pre.t_prefill is None:
+            pre.t_prefill = time.monotonic()
         ids = pre.table.current().block_ids  # protected snapshot
         tables[b - 1, : len(ids)] = ids
         tokens[b - 1, :] = pre.prompt[ctx:ctx + n]
@@ -835,59 +868,63 @@ class Scheduler:
         through the same post-reservation ordering as a cancelled
         in-flight row.
         """
-        stats = self._wstats(tid)
-        failed_rids = set()
-        if failed_rows is not None:
-            failed_rids = {req.rid for req, bad
-                           in zip(plan.requests, failed_rows) if bad}
-        with self._lock:
-            if failed_rids:
+        with obs.span("sched.complete"):
+            stats = self._wstats(tid)
+            failed_rids = set()
+            if failed_rows is not None:
+                failed_rids = {req.rid for req, bad
+                               in zip(plan.requests, failed_rows) if bad}
+            with self._lock:
+                if failed_rids:
+                    for req in plan.requests:
+                        if req.rid in failed_rids:
+                            req.inflight = False  # its step DID complete
+                            req.failing = True
+                if plan.kind == "prefill":
+                    if plan.requests[0].rid not in failed_rids:
+                        self._complete_prefill(plan.requests[0],
+                                               plan.n_tokens, int(sampled[0]),
+                                               tid, stats)
+                elif plan.kind == "mixed":
+                    for i, req in enumerate(plan.requests):
+                        if req.rid in failed_rids:
+                            continue
+                        if i < plan.n_decode:
+                            self._complete_decode(req, int(sampled[i]), tid,
+                                                  stats)
+                        else:
+                            self._complete_prefill(
+                                req, int(plan.chunk_lens[i]), int(sampled[i]),
+                                tid, stats)
+                else:
+                    for req, tok in zip(plan.requests, sampled):
+                        if req.rid not in failed_rids:
+                            self._complete_decode(req, int(tok), tid, stats)
+                self.pool.release_step(plan.slot, tid, shard=plan.shard)
+                self._slots.append(plan.slot)
+                # cancelled/failed rows finalize HERE — after release_step,
+                # so release_all never runs under this request's own
+                # dispatch (the cancellation ordering; any sibling step
+                # still naming these blocks holds its own reservation and
+                # the era scan defers physical reuse until it clears)
                 for req in plan.requests:
-                    if req.rid in failed_rids:
-                        req.inflight = False  # its step DID complete
-                        req.failing = True
-            if plan.kind == "prefill":
-                if plan.requests[0].rid not in failed_rids:
-                    self._complete_prefill(plan.requests[0], plan.n_tokens,
-                                           int(sampled[0]), tid, stats)
-            elif plan.kind == "mixed":
-                for i, req in enumerate(plan.requests):
-                    if req.rid in failed_rids:
-                        continue
-                    if i < plan.n_decode:
-                        self._complete_decode(req, int(sampled[i]), tid,
-                                              stats)
-                    else:
-                        self._complete_prefill(req, int(plan.chunk_lens[i]),
-                                               int(sampled[i]), tid, stats)
-            else:
-                for req, tok in zip(plan.requests, sampled):
-                    if req.rid not in failed_rids:
-                        self._complete_decode(req, int(tok), tid, stats)
-            self.pool.release_step(plan.slot, tid, shard=plan.shard)
-            self._slots.append(plan.slot)
-            # cancelled/failed rows finalize HERE — after release_step, so
-            # release_all never runs under this request's own dispatch
-            # (the cancellation ordering; any sibling step still naming these
-            # blocks holds its own reservation and the era scan defers
-            # physical reuse until it clears)
-            for req in plan.requests:
-                if req.cancelled and req.state == "active":
-                    self._finalize_cancelled(req, tid, stats)
-                elif req.failing and req.state == "active":
-                    self._finalize_failed(req, tid, stats)
-            self._work.notify_all()  # freed a slot + un-inflighted requests
-        # shard-clock merge rides on the step boundary (sharded pools)
-        boundary = getattr(self.pool, "step_boundary", None)
-        if boundary is not None:
-            boundary(tid)
-        # batched drain (era_table backends) once the list crosses the
-        # pool's vectorized threshold; scalar flush below it.  Outside the
-        # scheduler lock: reclamation must never block planning.  Under
-        # sharding every retire from this complete — blocks AND table
-        # versions, both pinned to the request's shard — landed in
-        # plan.shard, so one shard's drain covers them.
-        stats["reclaimed"] += self.pool.cleanup(tid, shard=plan.shard)
+                    if req.cancelled and req.state == "active":
+                        self._finalize_cancelled(req, tid, stats)
+                    elif req.failing and req.state == "active":
+                        self._finalize_failed(req, tid, stats)
+                # freed a slot + un-inflighted requests
+                self._work.notify_all()
+            # shard-clock merge rides on the step boundary (sharded pools)
+            boundary = getattr(self.pool, "step_boundary", None)
+            if boundary is not None:
+                boundary(tid)
+            # batched drain (era_table backends) once the list crosses
+            # the pool's vectorized threshold; scalar flush below it.
+            # Outside the scheduler lock: reclamation must never block
+            # planning.  Under sharding every retire from this complete —
+            # blocks AND table versions, both pinned to the request's shard
+            # — landed in plan.shard, so one shard's drain covers them.
+            stats["reclaimed"] += self.pool.cleanup(tid, shard=plan.shard)
 
     def _complete_decode(self, req: Request, tok: int, tid: int,
                          stats: Dict[str, int]) -> None:
@@ -938,7 +975,8 @@ class Scheduler:
             req.on_token(req, len(req.generated) - 1, tok)
         if req.done:
             req.state = "done"
-            req.table.release_all(tid)
+            with obs.span("table.release"):
+                req.table.release_all(tid)
             self.active.remove(req)
             stats["completed"] += 1
             if req.on_finish is not None:

@@ -60,6 +60,19 @@ Parameters and pools are built before any worker starts and the card is
 synchronised once after, so every tensor that crosses streams is
 long-lived.
 
+Spans (``repro_torch.obs``; recorded while a profile or ``obs.enable()``
+is on): ``engine.step`` is the whole of ``execute_plan``, dispatch and
+``Scheduler.complete``; under it ``engine.inputs`` builds the padded host
+arrays (and, under ``engine.launch``, stages them through pinned memory),
+``engine.launch`` runs from asking for the dispatch lock to the event
+recorded (``engine.capture``: a signature's first dispatch, eager step
+and capture), ``engine.wait`` waits for the sampled ids.  ``worker.park``
+is ``run_worker``'s idle branch.  Every step, recorded or not, adds its
+live rows' query tokens and the tokens its padded rows and columns compute
+to the scheduler's ``tokens_live`` and ``tokens_computed``, and the time
+from its dispatch to its sampled ids on the host (``engine.step`` less
+``Scheduler.complete``) to ``<kind>_ns`` and ``<kind>_dispatches``.
+
 Shutdown runs ``drain()`` — an era-progress-bounded fleet drain that
 provably terminates (every round either frees a block or ticks every era
 clock, and at quiescence each scheme frees all blocks within a bounded
@@ -76,7 +89,7 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.blocks import (BlockPool, PrefixCache, Scheduler,
                                 ShardedBlockPool)
 from repro_torch.kernels import build
@@ -119,16 +132,17 @@ class _StepInputs:
                       for shape, o in zip(self.shapes, self.offsets)]
 
     def load(self, arrays) -> None:
-        host = torch.empty(self.size, dtype=torch.int32, pin_memory=True)
-        flat = host.numpy()
-        for a, shape, o in zip(arrays, self.shapes, self.offsets):
-            got = None if a is None else np.shape(a)
-            if got != shape:
-                raise ValueError(f"step input of shape {got}: the graph was "
-                                 f"captured for {shape}")
-            if a is not None:
-                flat[o:o + a.size] = np.ravel(a)
-        self.buf.copy_(host, non_blocking=True)
+        with obs.span("engine.inputs"):
+            host = torch.empty(self.size, dtype=torch.int32, pin_memory=True)
+            flat = host.numpy()
+            for a, shape, o in zip(arrays, self.shapes, self.offsets):
+                got = None if a is None else np.shape(a)
+                if got != shape:
+                    raise ValueError(f"step input of shape {got}: the graph "
+                                     f"was captured for {shape}")
+                if a is not None:
+                    flat[o:o + a.size] = np.ravel(a)
+            self.buf.copy_(host, non_blocking=True)
 
 
 class _Graph:
@@ -241,7 +255,6 @@ class ServeEngine:
         self._graph_pools: List[Optional[tuple]] = [None] * len(self._streams)
         self._capture_streams = [torch.cuda.Stream(device=self.device)
                                  if cuda else None for _ in self._streams]
-        self._capture_seconds = 0.0
         if cuda:
             # the parameters and the pools were written on the default
             # stream; the shard streams read them from here on
@@ -353,38 +366,60 @@ class ServeEngine:
         worker's reservation once its thread is joined, which is safe only
         if no read of the pages it protected is still queued.
         """
-        try:
-            if plan.kind == "prefill":
-                sampled = self._dispatch_prefill(plan)
-            elif plan.kind == "mixed":
-                sampled = self._dispatch_mixed(plan)
-            else:
-                sampled = self._dispatch_decode(plan)
-        except BaseException:
-            stream = self._streams[plan.shard]
-            if stream is not None:
-                stream.synchronize()
-            raise
-        faults = self.faults
-        if faults is not None:
-            row = faults.poison_row(len(plan.requests))
-            if row is not None:
-                poisoned = np.asarray(sampled, dtype=np.float64).copy()
-                poisoned[row] = np.nan
-                sampled = poisoned
-            faults.crash_point("after_dispatch", tid)
-        failed_rows = None
-        arr = np.asarray(sampled)
-        if not np.issubdtype(arr.dtype, np.integer):
-            # graceful degradation: a non-finite sampled output (device
-            # fault, poisoned logits) fails THAT request, not the batch —
-            # surviving rows keep their (finite) tokens
-            finite = np.isfinite(arr)
-            if not finite.all():
-                failed_rows = [not bool(f) for f in finite]
-            sampled = np.where(finite, arr, 0).astype(np.int32)
-        self.sched.complete(plan, sampled, tid, failed_rows=failed_rows)
+        t0 = time.perf_counter_ns()
+        with obs.span("engine.step", kind=plan.kind):
+            try:
+                if plan.kind == "prefill":
+                    sampled = self._dispatch_prefill(plan)
+                elif plan.kind == "mixed":
+                    sampled = self._dispatch_mixed(plan)
+                else:
+                    sampled = self._dispatch_decode(plan)
+            except BaseException:
+                stream = self._streams[plan.shard]
+                if stream is not None:
+                    stream.synchronize()
+                raise
+            faults = self.faults
+            if faults is not None:
+                row = faults.poison_row(len(plan.requests))
+                if row is not None:
+                    poisoned = np.asarray(sampled, dtype=np.float64).copy()
+                    poisoned[row] = np.nan
+                    sampled = poisoned
+                faults.crash_point("after_dispatch", tid)
+            failed_rows = None
+            arr = np.asarray(sampled)
+            if not np.issubdtype(arr.dtype, np.integer):
+                # graceful degradation: a non-finite sampled output
+                # (device fault, poisoned logits) fails THAT request, not
+                # the batch — surviving rows keep their (finite) tokens
+                finite = np.isfinite(arr)
+                if not finite.all():
+                    failed_rows = [not bool(f) for f in finite]
+                sampled = np.where(finite, arr, 0).astype(np.int32)
+            rows, cols = self._padded_shape(plan)
+            self.sched.count_step(
+                tid, plan.kind,
+                len(plan.requests) if plan.kind == "decode" else plan.n_tokens,
+                rows * cols, time.perf_counter_ns() - t0)
+            self.sched.complete(plan, sampled, tid, failed_rows=failed_rows)
         return sampled
+
+    def _padded_shape(self, plan) -> Tuple[int, int]:
+        """(rows, columns) of the step a plan's dispatch builds: a decode
+        plan's rows pad to ``max_batch``, a prefill chunk to its pow2
+        bucket, a mixed plan to ``max_batch + 1`` rows of its chunk's
+        bucket (``pad_shapes`` off: the plan's own)."""
+        b = len(plan.requests)
+        if plan.kind == "decode":
+            return (self.max_batch if self.pad_shapes else b), 1
+        c = plan.n_tokens if plan.kind == "prefill" else plan.tokens.shape[1]
+        if self.pad_shapes:
+            c = 1 << max(0, c - 1).bit_length()
+        if plan.kind == "prefill":
+            return 1, c
+        return (self.max_batch + 1 if self.pad_shapes else b), c
 
     def _bucket_width(self, plan, nblk: int, shard: int) -> int:
         """Padded table width for a plan (see ``bucket_policy``)."""
@@ -426,12 +461,13 @@ class ServeEngine:
         card each goes through pinned memory in an asynchronous copy on
         the current stream: no host sync."""
         out = []
-        for a in arrays:
-            t = (None if a is None
-                 else torch.from_numpy(np.ascontiguousarray(a, np.int32)))
-            if t is not None and self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out.append(t)
+        with obs.span("engine.inputs"):
+            for a in arrays:
+                t = (None if a is None
+                     else torch.from_numpy(np.ascontiguousarray(a, np.int32)))
+                if t is not None and self.device.type == "cuda":
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                out.append(t)
         return out
 
     def _sample(self, step, shard: int, args) -> torch.Tensor:
@@ -468,7 +504,7 @@ class ServeEngine:
         stream = self._streams[s]
         on_stream = (torch.cuda.stream(stream) if stream is not None
                      else contextlib.nullcontext())
-        with self._dispatch_lock, on_stream:
+        with obs.span("engine.launch"), self._dispatch_lock, on_stream:
             if stream is None:  # the CPU runs the eager step
                 return self._sample(step, s,
                                     self._inputs(arrays))[:b].numpy()
@@ -484,7 +520,8 @@ class ServeEngine:
             done.record(stream)
         # wait OUTSIDE the lock: other workers plan and launch while this
         # one waits (on this shard's stream only, never the default one)
-        done.synchronize()
+        with obs.span("engine.wait"):
+            done.synchronize()
         return host.numpy()
 
     def _compiled(self, s: int, step, key, arrays) -> torch.Tensor:
@@ -504,41 +541,42 @@ class ServeEngine:
             graph.graph.replay()
             graph.tally.replay()
             return graph.ids
-        inputs = _StepInputs(arrays, self.device)
-        inputs.load(arrays)
-        ids = self._sample(step, s, inputs.views)
-        t0 = time.perf_counter()
-        if self._graph_pools[s] is None:
-            self._graph_pools[s] = torch.cuda.graph_pool_handle()
-        g = torch.cuda.CUDAGraph()
-        with build.capturing() as tally, \
-                torch.cuda.stream(self._capture_streams[s]):
-            g.capture_begin(pool=self._graph_pools[s],
-                            capture_error_mode="thread_local")
-            try:
-                static_ids = self._sample(step, s, inputs.views)
-            except BaseException:
-                with contextlib.suppress(Exception):
-                    g.capture_end()  # ends the capture; the step's error
-                raise                # is the one to report
-            g.capture_end()
-        self._graphs[(s, key)] = _Graph(g, inputs, static_ids, tally)
-        self._capture_seconds += time.perf_counter() - t0
+        with obs.span("engine.capture"):
+            inputs = _StepInputs(arrays, self.device)
+            inputs.load(arrays)
+            ids = self._sample(step, s, inputs.views)
+            if self._graph_pools[s] is None:
+                self._graph_pools[s] = torch.cuda.graph_pool_handle()
+            g = torch.cuda.CUDAGraph()
+            with build.capturing() as tally, \
+                    torch.cuda.stream(self._capture_streams[s]):
+                g.capture_begin(pool=self._graph_pools[s],
+                                capture_error_mode="thread_local")
+                try:
+                    static_ids = self._sample(step, s, inputs.views)
+                except BaseException:
+                    with contextlib.suppress(Exception):
+                        g.capture_end()  # ends the capture; the step's
+                    raise                # error is the one to report
+                g.capture_end()
+            self._graphs[(s, key)] = _Graph(g, inputs, static_ids, tally)
         return ids
 
     def _dispatch_decode(self, plan) -> np.ndarray:
         b = plan.tables.shape[0]
-        rows = self.max_batch if self.pad_shapes else b
-        tables = self._bucket_tables(plan, rows)
-        lengths, tokens, positions = (plan.lengths, plan.tokens,
-                                      plan.positions)
-        if self.pad_shapes:
-            lengths = np.ones((rows,), np.int32)  # pad rows: 1 scratch token
-            lengths[:b] = plan.lengths
-            tokens = np.zeros((rows,), np.int32)
-            tokens[:b] = plan.tokens
-            positions = np.zeros((rows,), np.int32)
-            positions[:b] = plan.positions
+        rows, _ = self._padded_shape(plan)
+        with obs.span("engine.inputs"):
+            tables = self._bucket_tables(plan, rows)
+            lengths, tokens, positions = (plan.lengths, plan.tokens,
+                                          plan.positions)
+            if self.pad_shapes:
+                # pad rows: 1 scratch token
+                lengths = np.ones((rows,), np.int32)
+                lengths[:b] = plan.lengths
+                tokens = np.zeros((rows,), np.int32)
+                tokens[:b] = plan.tokens
+                positions = np.zeros((rows,), np.int32)
+                positions[:b] = plan.positions
         return self._run_step(plan, paged_decode_step,
                               (tables, lengths, tokens, positions), b)
 
@@ -546,18 +584,19 @@ class ServeEngine:
         """One prefill chunk (B == 1), its length padded to a pow2 bucket."""
         n = plan.n_tokens
         ctx = int(plan.lengths[0]) - n  # context BEFORE the chunk
-        cb = 1 << max(0, n - 1).bit_length() if self.pad_shapes else n
-        tables = self._bucket_tables(plan, 1)
-        tokens = np.zeros((1, cb), np.int32)
-        tokens[0, :n] = plan.tokens
-        # pad positions clamp to the last valid one: their (discarded)
-        # attention rows stay masked to materialized pages
-        positions = (ctx + np.minimum(np.arange(cb), n - 1)
-                     ).astype(np.int32)[None, :]
-        chunk_lens = np.array([n], np.int32)
-        return self._run_step(plan, paged_prefill_chunk,
-                              self._chunk_inputs(plan.shard, tables, tokens,
-                                                 positions, chunk_lens), 1)
+        _, cb = self._padded_shape(plan)
+        with obs.span("engine.inputs"):
+            tables = self._bucket_tables(plan, 1)
+            tokens = np.zeros((1, cb), np.int32)
+            tokens[0, :n] = plan.tokens
+            # pad positions clamp to the last valid one: their (discarded)
+            # attention rows stay masked to materialized pages
+            positions = (ctx + np.minimum(np.arange(cb), n - 1)
+                         ).astype(np.int32)[None, :]
+            chunk_lens = np.array([n], np.int32)
+            arrays = self._chunk_inputs(plan.shard, tables, tokens,
+                                        positions, chunk_lens)
+        return self._run_step(plan, paged_prefill_chunk, arrays, 1)
 
     def _dispatch_mixed(self, plan) -> np.ndarray:
         """Decode rows + one prefill chunk row in ONE dispatch of the chunked
@@ -566,20 +605,21 @@ class ServeEngine:
         their token to the scratch slot; pad columns clamp to each row's
         last valid position."""
         b, c = plan.tokens.shape
-        rows = (self.max_batch + 1) if self.pad_shapes else b
-        tables = self._bucket_tables(plan, rows)
-        cb = 1 << max(0, c - 1).bit_length() if self.pad_shapes else c
-        tokens = np.zeros((rows, cb), np.int32)
-        tokens[:b, :c] = plan.tokens
-        positions = np.zeros((rows, cb), np.int32)
-        positions[:b, :c] = plan.positions
-        if cb > c:
-            positions[:b, c:] = plan.positions[:, c - 1:c]
-        chunk_lens = np.ones((rows,), np.int32)  # pad rows: 1 scratch token
-        chunk_lens[:b] = plan.chunk_lens
-        return self._run_step(plan, paged_prefill_chunk,
-                              self._chunk_inputs(plan.shard, tables, tokens,
-                                                 positions, chunk_lens), b)
+        rows, cb = self._padded_shape(plan)
+        with obs.span("engine.inputs"):
+            tables = self._bucket_tables(plan, rows)
+            tokens = np.zeros((rows, cb), np.int32)
+            tokens[:b, :c] = plan.tokens
+            positions = np.zeros((rows, cb), np.int32)
+            positions[:b, :c] = plan.positions
+            if cb > c:
+                positions[:b, c:] = plan.positions[:, c - 1:c]
+            # pad rows: 1 scratch token
+            chunk_lens = np.ones((rows,), np.int32)
+            chunk_lens[:b] = plan.chunk_lens
+            arrays = self._chunk_inputs(plan.shard, tables, tokens,
+                                        positions, chunk_lens)
+        return self._run_step(plan, paged_prefill_chunk, arrays, b)
 
     def _chunk_inputs(self, shard, tables, tokens, positions, chunk_lens):
         """``paged_prefill_chunk``'s inputs with the K/V write indices it
@@ -684,10 +724,11 @@ class ServeEngine:
             # are stalled or done ticking.  Back off while idle — a hot
             # spin here starves the working threads of the GIL.
             idle += 1
-            if idle % 4 == 1:
-                self.pool.cleanup_all()
-            else:
-                self.sched.wait_for_work(0.002)
+            with obs.span("worker.park"):
+                if idle % 4 == 1:
+                    self.pool.cleanup_all()
+                else:
+                    self.sched.wait_for_work(0.002)
         return productive
 
     def run(self, tid: int, max_steps: int = 10_000) -> Dict[str, int]:

@@ -59,6 +59,11 @@ does a state or batch of DTensors (a mesh: its NCCL step is not captured).
 Python-level choices inside the step (``perf_flags.FLAGS``) are taken at
 capture, as jax takes them at trace time.
 
+``Trainer.run`` records a span per step for the wait for the batch
+(``train.data``), the step (``train.step``: input load, replay or
+capture) and the metrics' read-back (``train.metrics``, which waits for
+the step on the card); see ``repro_torch.obs``.
+
 The reference names a ``compressed_dp`` mode only in docstrings
 (``repro/train/trainer.py:11-13``, ``sharding/gradient_compression.py``);
 its ``make_train_step`` has no such mode, so the port adds none.  The
@@ -77,7 +82,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.kernels import build
 from repro_torch.models.loops import counted_range
 from repro_torch.sharding.axes import is_dtensor
@@ -462,10 +467,14 @@ class Trainer:
         it = iter(batches)
         start = int(state["opt"]["step"])
         for i in range(start, start + steps):
-            batch = next(it)
-            state, metrics = self._step_fn(state, batch)
+            with obs.span("train.data"):
+                batch = next(it)
+            with obs.span("train.step"):
+                state, metrics = self._step_fn(state, batch)
             if on_metrics is not None:
-                on_metrics(i + 1, {k: float(v) for k, v in metrics.items()})
+                with obs.span("train.metrics"):
+                    values = {k: float(v) for k, v in metrics.items()}
+                on_metrics(i + 1, values)
             if (self.checkpointer is not None and self.checkpoint_every
                     and (i + 1) % self.checkpoint_every == 0):
                 self.checkpointer.save(int(state["opt"]["step"]), state)

@@ -203,7 +203,7 @@ def test_engine_tokens_match_reference(arch):
         outs.append([r.generated for r in reqs])
         stats.append(st)
     assert outs[0] == outs[1]
-    assert stats[0] == stats[1]
+    assert {k: stats[1][k] for k in stats[0]} == stats[0]
 
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)

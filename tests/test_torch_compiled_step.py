@@ -249,8 +249,10 @@ def test_static_chunk_inputs_equal_derived_path(kv):
         assert eng.pool.unreclaimed() == 0
         assert eng.pool.free_blocks == kw["n_blocks"]
         outs.append(([list(r.generated) for r in reqs], stats))
-    assert outs[0] == outs[1]
-    assert outs[1][1]["prefix_hits"] > 0
+    (ref_tokens, ref_stats), (tokens, stats) = outs
+    assert tokens == ref_tokens
+    assert {k: stats[k] for k in ref_stats} == ref_stats
+    assert stats["prefix_hits"] > 0
     assert checked["mixed"] > 0 and checked["prefill"] > 0, checked
     assert checked["aliased"] > 0 and checked["ragged"] > 0, checked
 

@@ -1814,3 +1814,34 @@ def test_moe_expert_product_on_the_card(dev):
     got.sum().backward()
     assert ad.grad.dtype == bd.grad.dtype == torch.bfloat16
     assert torch.isfinite(ad.grad).all() and torch.isfinite(bd.grad).all()
+
+
+def test_a_span_holds_its_kernel_on_the_profile_clock(dev):
+    """The program's spans and the device trace share one clock: a span
+    around a kernel launch and a ``synchronize``, under a CUDA profile,
+    contains that kernel's device interval mapped through
+    ``trace_start_ns`` within 50 us."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+
+    a = torch.randn(2048, 2048, device=dev)
+    torch.mm(a, a)
+    torch.cuda.synchronize()
+    obs.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            with obs.span("launch"):
+                torch.mm(a, a)
+                torch.cuda.synchronize()
+    start = prof.profiler.kineto_results.trace_start_ns()
+    held = [((s.t0_ns - start) / 1e3, (s.t1_ns - start) / 1e3)
+            for s in obs.records("launch")]
+    obs.clear()
+    kernels = [e.time_range for e in prof.events()
+               if e.device_type.name == "CUDA"]
+    assert len(held) == 3 and len(kernels) >= 3
+    for k in kernels:
+        assert any(a - 50 <= k.start and k.end <= b + 50 for a, b in held), \
+            (k.start, k.end, held)

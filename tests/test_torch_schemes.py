@@ -432,5 +432,5 @@ def test_engine_schemes_match_reference(scheme, trace_models):
         outs.append([r.generated for r in reqs])
         stats.append(st)
     assert outs[0] == outs[1]
-    assert stats[0] == stats[1]
+    assert {k: stats[1][k] for k in stats[0]} == stats[0]
     assert stats[1]["reclaimed"] > 0
