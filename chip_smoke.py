@@ -19,8 +19,9 @@ Phases, each printing its own line; any failure exits non-zero:
    each kernel's bound (the least time the card could take for the same
    work): paged attention over bf16/f32 and over int8 pools at decode
    (the split-KV walk) and at a mixed step (the tensor-core tile; the f32
-   query's f32 tile), also in the engine's own mixed layout (decode
-   rows padded to the chunk bucket); the same decode and mixed shapes at
+   query's f32 tile), also as the engine's own mixed step launches it
+   (the split-KV walk over 8 decode slots and the tile over one
+   256-token chunk, timed together); the same decode and mixed shapes at
    gemma-7b's head dim 256 (KH 16, G 1) over bf16 and int8 pages and with
    an f32 query, and at starcoder2-3b's grouped heads (KH 2, G 12, D 128);
    dense flash attention at the stablelm-3b, starcoder2-3b and gemma-7b
@@ -43,7 +44,8 @@ Phases, each printing its own line; any failure exits non-zero:
 3. Serve a seeded 32-request trace on the full-width stablelm-3b engine in
    bf16 (WFE, use_kernel=True) and check the serving invariants, that the
    path's kernels were launched, and that decode steps took the split-KV
-   walk and mixed and prefill steps the tensor-core tile (launches printed
+   walk, prefill steps the tensor-core tile and mixed steps both (their
+   decode slots and their chunk; launches printed
    by variant and by plan kind); then (3b) the same trace on the same
    weights with int8 KV pages; then (3c) the 8-request profile-window
    trace once under each pool scheme (WFE, Crystalline, HE, EBR, 2GEIBR),
@@ -327,20 +329,14 @@ def gpu_name_and_limit() -> str:
 
 # ------------------------------------------------------------ phase 2: kernels
 def attention_case(dtype, b, c, nblk, layers, dev, int8=False,
-                   engine_mixed=False, arch="stablelm-3b"):
+                   arch="stablelm-3b"):
     """Main-path-shaped operands of ``arch``'s attention (its KH, G and D):
     (layers, N, bs, KH, D) pools (one pool per
     layer, rotated so consecutive launches read other pages, as the layer
     loop does), random permuted tables, ragged contexts.  ``int8`` makes
     the pools int8 codes with (layers, N, KH) f32 scales.  The draws are
     seeded by the shape, so every pool type of one shape gets the same
-    tables, contexts and q: their times compare like with like.
-
-    ``engine_mixed`` lays the rows out as the engine's mixed step does
-    (``ServeEngine._dispatch_mixed``): the first b - 1 rows are decode rows
-    whose c columns all sit at the row's decode position (the pad columns
-    clamp to it) and only column 0 is read; the last row is a c-token
-    chunk.  ``read`` (B, C) marks the rows the step reads."""
+    tables, contexts and q: their times compare like with like."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
@@ -358,13 +354,9 @@ def attention_case(dtype, b, c, nblk, layers, dev, int8=False,
     ctx = torch.randint(0, hi + 1, (b, 1), generator=gen, device=dev)
     cols = torch.arange(c, device=dev)[None, :]
     qpos = (ctx + cols).to(torch.int32)
-    read = torch.ones((b, c), dtype=torch.bool, device=dev)
-    if engine_mixed:
-        qpos[:-1] = ctx[:-1].to(torch.int32)
-        read[:-1] = cols == 0
     live = (qpos.max(dim=1).values // bs + 1).to(torch.int32)
     case = dict(k=k, v=v, q=q, tables=tables, qpos=qpos, live=live, bs=bs,
-                scale=1.0 / math.sqrt(d), ksc=None, vsc=None, read=read)
+                scale=1.0 / math.sqrt(d), ksc=None, vsc=None)
     if int8:
         shape, sshape = k.shape, k.shape[:2] + (kh,)
         case["k"], case["v"] = (
@@ -387,21 +379,18 @@ def attention_bound_ms(case) -> tuple:
     """Least time for the work: bytes (q, the live K/V pages at the pool's
     element size, their scales for int8 pools, tables, positions, output)
     over HBM, or 4*D flops per visible (query, key) pair over the query
-    type's peak; the larger of the two.  Only the rows the step reads
-    (``case["read"]``) count: q and output rows, and their pairs."""
+    type's peak; the larger of the two."""
     q, k, tables, qpos, live, bs = (case["q"], case["k"], case["tables"],
                                     case["qpos"], case["live"], case["bs"])
     b, c, kh, g, d = q.shape
-    read = case["read"]
-    n_read = int(read.sum())
     page = bs * kh * d * k.element_size()
     if case["ksc"] is not None:
         page += kh * case["ksc"].element_size()  # one scale per kv head
-    nbytes = (2 * n_read * kh * g * d * q.element_size()
+    nbytes = (2 * b * c * kh * g * d * q.element_size()
               + 2 * int(live.sum()) * page
               + 4 * (tables.numel() + qpos.numel() + live.numel()))
     visible = torch.minimum(qpos.long() + 1, (live.long() * bs)[:, None])
-    flops = 4 * d * g * kh * int(visible[read].sum())
+    flops = 4 * d * g * kh * int(visible.sum())
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = flops / PEAK_OPS[q.dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -586,14 +575,12 @@ def _restore_counts(saved) -> None:
         ctr.n = n
 
 
-def check_attention(dtype, b, c, nblk, dev, engine_mixed=False,
-                    arch="stablelm-3b"):
+def check_attention(dtype, b, c, nblk, dev, arch="stablelm-3b"):
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.ref import paged_attention_chunk_ref
 
     layers = 8
-    case = attention_case(dtype, b, c, nblk, layers, dev,
-                          engine_mixed=engine_mixed, arch=arch)
+    case = attention_case(dtype, b, c, nblk, layers, dev, arch=arch)
     q, tables, qpos, live, scale = (case["q"], case["tables"], case["qpos"],
                                     case["live"], case["scale"])
     k0, v0 = case["k"][0], case["v"][0]
@@ -620,40 +607,30 @@ def check_attention(dtype, b, c, nblk, dev, engine_mixed=False,
     nan_safe = torch.equal(got, poisoned) and bool(torch.isfinite(got).all())
     del kp, vp
     tag = (f"paged_attention {str(dtype).split('.')[-1]} B={b} C={c} "
-           f"nblk={nblk}" + (" engine mixed layout" if engine_mixed else "")
-           + _arch_tag(arch, case))
+           f"nblk={nblk}" + _arch_tag(arch, case))
     phase(f"{tag} vs plain", close and model_ok and bitwise and nan_safe,
           f"max_abs_err={err:.3e} (rtol {rtol:.3g} atol {atol:.3g})"
           f"{model_detail}, bounded==unbounded {bitwise}, NaN dead slots "
           f"unread {nan_safe}")
-    row = dict(max_abs_err=err, **time_attention(case, layers, tag))
-    if engine_mixed:
-        row.update(time_pad_fix(case, layers, tag))
+    return dict(max_abs_err=err, **time_attention(case, layers, tag))
+
+
+def engine_mixed_row(decode, chunk) -> dict:
+    """The engine's packed mixed step's attention (``paged_mixed_step``)
+    from the rows of its two launches, each checked on its own: the
+    split-KV walk over the decode slots and the tile over the chunk as one
+    (1, C) row.  Times and bounds add; the error is the larger."""
+    row = {k: decode[k] + chunk[k]
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                     "library_device_ms")}
+    row.update(max_abs_err=max(decode["max_abs_err"], chunk["max_abs_err"]),
+               bound_by=f"{decode['bound_by']}+{chunk['bound_by']}",
+               variant=f"{decode['variant']}+{chunk['variant']}")
+    print(f"  the engine's mixed step (decode {decode['variant']} + chunk "
+          f"{chunk['variant']}): kernels {row['ms']:.4f} ms (graph replay "
+          f"{row['device_ms']:.4f} ms), bound {row['bound_ms']:.4f} ms",
+          flush=True)
     return row
-
-
-def time_pad_fix(case, layers, tag) -> float:
-    """The engine's mixed step with its pad columns at position -1 (the
-    rows the step discards see no key), as ROADMAP Queue 2 proposes: what
-    the padded rows cost is the difference from the step as it is."""
-    from repro_torch.kernels import paged_attention as pa
-
-    qpos = torch.where(case["read"], case["qpos"], -1).to(torch.int32)
-    it = [0]
-
-    def kern():
-        kp, vp, ksc, vsc = _layer(case, it[0] % layers)
-        it[0] += 1
-        pa.paged_attention_chunk(case["q"], kp, vp, case["tables"], qpos,
-                                 case["live"], ksc, vsc, scale=case["scale"])
-
-    saved = _save_counts()
-    ms = time_ms(kern)
-    device_ms = time_ms(kern, graph=True)
-    _restore_counts(saved)
-    print(f"  {tag}, pad columns at position -1: kernel {ms:.4f} ms (graph "
-          f"replay {device_ms:.4f} ms)", flush=True)
-    return dict(pad_at_minus_one_ms=ms, pad_at_minus_one_device_ms=device_ms)
 
 
 def _arch_tag(arch, case) -> str:
@@ -664,8 +641,7 @@ def _arch_tag(arch, case) -> str:
     return f" ({arch}: KH {kh} G {g} D {d})"
 
 
-def check_attention_int8(b, c, nblk, dev, engine_mixed=False,
-                         arch="stablelm-3b"):
+def check_attention_int8(b, c, nblk, dev, arch="stablelm-3b"):
     """The fused-dequant kernel over int8 pools: bf16 q against the plain
     version; f32 q against the f32 kernel on the dequantized pools,
     bitwise; NaN scales in dead table slots never read."""
@@ -675,7 +651,7 @@ def check_attention_int8(b, c, nblk, dev, engine_mixed=False,
 
     layers = 8
     case = attention_case(torch.bfloat16, b, c, nblk, layers, dev, int8=True,
-                          engine_mixed=engine_mixed, arch=arch)
+                          arch=arch)
     q, tables, qpos, live, scale = (case["q"], case["tables"], case["qpos"],
                                     case["live"], case["scale"])
     kq, vq, ksc, vsc = _layer(case, 0)
@@ -705,16 +681,12 @@ def check_attention_int8(b, c, nblk, dev, engine_mixed=False,
                                         vsc2, scale=scale)
     nan_safe = torch.equal(got, poisoned) and bool(torch.isfinite(got).all())
     tag = (f"paged_attention int8 pools, bf16 q, B={b} C={c} nblk={nblk}"
-           + (" engine mixed layout" if engine_mixed else "")
            + _arch_tag(arch, case))
     phase(f"{tag} vs plain", close and model_ok and bitwise and nan_safe,
           f"max_abs_err={err:.3e} (rtol {rtol:.3g} atol {atol:.3g})"
           f"{model_detail}, f32 q fused == f32 kernel on dequantized pools "
           f"{bitwise}, NaN dead scales unread {nan_safe}")
-    row = dict(max_abs_err=err, **time_attention(case, layers, tag))
-    if engine_mixed:
-        row.update(time_pad_fix(case, layers, tag))
-    return row
+    return dict(max_abs_err=err, **time_attention(case, layers, tag))
 
 
 #: bf16 flash at a non-causal shape with small outputs (whisper-small's
@@ -1316,8 +1288,9 @@ def serve_trace(cfg, params, dev, kv_dtype):
                   all(0 <= t < cfg.vocab_size for t in r.generated)
                   for r in reqs)
     # decode steps take the split-KV walk and its combine and nothing
-    # else, mixed and prefill steps the tensor-core tile (a chunk of fewer
-    # than 16 columns takes the split walk); each call launched the
+    # else, prefill steps the tensor-core tile (a chunk of fewer than 16
+    # columns takes the split walk), mixed steps the split walk over their
+    # decode slots and the tile over their chunk; each call launched the
     # variant ``choose_variant`` gives its shapes, and no f32 tile ran
     kinds_ok = (set(by_kind) == {"decode", "mixed", "prefill"}
                 and set(by_kind["decode"]) == {"split"}
@@ -1387,7 +1360,8 @@ class PlanLog:
         self._flags: list = []
         self._chunk = pa.paged_attention_chunk
         self._steps = {name: getattr(engine_mod, name)
-                       for name in ("paged_decode_step", "paged_prefill_chunk")}
+                       for name in ("paged_decode_step", "paged_prefill_chunk",
+                                    "paged_mixed_step")}
         run_plan = engine.execute_plan
 
         def execute_plan(plan, tid):
@@ -1830,16 +1804,18 @@ def _counts_ok(run, expect_kinds) -> bool:
     """The launch counts agree with the logged calls (a split launch is
     one split and one combine), no f32 tile ran, no call logged per
     call launched off its variant, and each plan kind in ``expect_kinds``
-    called its variant: decode the split-KV walk, mixed and prefill the
-    tile."""
+    called its variants: decode the split-KV walk, prefill the tile, mixed
+    both (the split walk over its decode slots, the tile over its
+    chunk)."""
     by_kind, n = run["by_kind"], run["launches"]
     split = sum(v.get("split", 0) for v in by_kind.values())
     tile = sum(v.get("tile", 0) for v in by_kind.values())
-    want = {"decode": "split", "mixed": "tile", "prefill": "tile"}
+    want = {"decode": ("split",), "mixed": ("split", "tile"),
+            "prefill": ("tile",)}
     return (not run["wrong"] and n["split"] == n["combine"] == split
             and n["tile"] == tile and n["cuda_core"] == 0
-            and all(by_kind.get(k, {}).get(want[k], 0) > 0
-                    for k in expect_kinds))
+            and all(by_kind.get(k, {}).get(v, 0) > 0
+                    for k in expect_kinds for v in want[k]))
 
 
 def _both_shards(run) -> bool:
@@ -4317,12 +4293,13 @@ def main() -> int:
             attn[(dtype, c)] = check_attention(dtype, b, c, 128, dev)
     for b, c in ((8, 1), (9, 256)):
         attn[("int8", c)] = check_attention_int8(b, c, 128, dev)
-    # the engine's own mixed step: 8 decode rows padded to the 256-column
-    # bucket at their decode positions, and one 256-token chunk
-    attn[(torch.bfloat16, "engine")] = check_attention(
-        torch.bfloat16, 9, 256, 128, dev, engine_mixed=True)
-    attn[("int8", "engine")] = check_attention_int8(9, 256, 128, dev,
-                                                    engine_mixed=True)
+    # the engine's own mixed step: the split-KV walk over its 8 decode
+    # slots (the decode case above) and the tile over one 256-token chunk
+    attn[(torch.bfloat16, "engine")] = engine_mixed_row(
+        attn[(torch.bfloat16, 1)],
+        check_attention(torch.bfloat16, 1, 256, 128, dev))
+    attn[("int8", "engine")] = engine_mixed_row(
+        attn[("int8", 1)], check_attention_int8(1, 256, 128, dev))
     free_device_memory()
     # the other archs' shapes (phase 6 serves them): gemma-7b's head dim
     # 256 (KH 16, G 1) over bf16 and int8 pages, and an f32 query (the
@@ -4414,7 +4391,7 @@ def main() -> int:
         ("paged_attention_chunk", 148, "mixed B 9 C 256, bf16 q",
          launches["tile"], attn[(torch.bfloat16, 256)]),
         ("paged_attention_chunk", 148, "engine mixed step, bf16 q",
-         launches["by_kind"].get("mixed", {}).get("tile", 0),
+         sum(launches["by_kind"].get("mixed", {}).values()),
          attn[(torch.bfloat16, "engine")]),
         ("paged_attention_chunk", 148, "decode B 8 C 1, f32 q", 0,
          attn[(torch.float32, 1)]),
@@ -4425,7 +4402,7 @@ def main() -> int:
         ("paged_attention_chunk_int8", 129, "mixed B 9 C 256, bf16 q",
          launches_q8["tile"], attn[("int8", 256)]),
         ("paged_attention_chunk_int8", 129, "engine mixed step, bf16 q",
-         launches_q8["by_kind"].get("mixed", {}).get("tile", 0),
+         sum(launches_q8["by_kind"].get("mixed", {}).values()),
          attn[("int8", "engine")]),
     ]
     # the other archs' rows, ``launches`` from their phase 6 windows: a
@@ -4592,7 +4569,7 @@ def main() -> int:
               or "arch" in row):
             n = 0  # int8 pages, f32 queries, other archs and flash are off
         elif row["case"].startswith("engine"):
-            n = rt["by_kind"].get("mixed", {}).get("tile", 0)
+            n = sum(rt["by_kind"].get("mixed", {}).values())
         else:
             n = rt[row["variant"]]
         row["launches_runtime"] = n

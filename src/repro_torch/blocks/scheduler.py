@@ -17,9 +17,10 @@ Mixed-batch token-budget planning (the decode-starvation fix): each
 token per decode-phase request (decode progress is the starvation victim
 under sustained prompt arrival), then the remainder goes to ONE prefill
 chunk of the oldest prefill-phase request.  Both ride in a single
-``StepPlan(kind="mixed")`` device dispatch: the chunked paged kernel
-already scores C ragged tokens with per-row positions, so decode rows are
-simply rows with ``chunk_lens == 1``.  A tick with only one kind of work
+``StepPlan(kind="mixed")`` device dispatch: the plan lays them out as C
+ragged tokens with per-row positions, decode rows simply rows with
+``chunk_lens == 1``, and the engine packs them onto one token axis
+(``paged_mixed_step``).  A tick with only one kind of work
 degenerates to a pure ``decode`` or ``prefill`` plan.  The era discipline
 is unchanged and is exactly what makes the mixed batch cheap: ONE interval
 reservation per step protects every page the batch touches — decode rows
@@ -289,9 +290,9 @@ class Scheduler:
     def count_step(self, tid: int, kind: str, live: int, computed: int,
                    ns: int) -> None:
         """Add one dispatched step of ``kind`` to worker ``tid``'s stats:
-        its live rows' query tokens (``live``), the tokens its padded rows
-        and columns compute (``computed``), and the nanoseconds from its
-        dispatch to its sampled ids on the host (``ns``)."""
+        its live rows' query tokens (``live``), the token slots its step
+        computes, padding included (``computed``), and the nanoseconds
+        from its dispatch to its sampled ids on the host (``ns``)."""
         st = self._wstats(tid)
         st["tokens_live"] += live
         st["tokens_computed"] += computed

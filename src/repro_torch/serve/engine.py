@@ -13,14 +13,16 @@ Ported from ``repro.serve.engine``:
 Shape buckets (``bucket_policy``) pad every step to (rows, width) buckets
 exactly as the reference does, so a request's steps keep one shape.
 Padding is cheap because the attention kernel is LENGTH-BOUNDED: it walks
-each request's ``num_live_blocks`` table slots only.
+each request's ``num_live_blocks`` table slots only.  A mixed plan runs on
+one packed token axis (``paged_mixed_step``): ``max_batch`` decode slots
+and the chunk's pow2 bucket, not ``max_batch + 1`` rows of that bucket.
 
 Compiled steps, the counterpart of the reference's ``_jit_decode`` and
 ``_jit_prefill``: on the card each (shard, step signature) is captured
 once as a CUDA graph, greedy argmax included, and replayed from then on
 (``_run_step``).  Every input of a padded step has a shape fixed by its
-signature (``_chunk_inputs`` routes the chunk's padded K/V writes to the
-scratch slot instead of leaving them out), so the signature is the key
+signature (``_write_inputs`` routes the padded K/V writes to the scratch
+slot instead of leaving them out), so the signature is the key
 ``compile_cache_size`` counts, as the reference counts its compiles.  The
 first dispatch of a signature runs eagerly (the warm-up, and its result),
 then the capture; a capture or replay that fails raises, and nothing falls
@@ -68,10 +70,11 @@ arrays (and, under ``engine.launch``, stages them through pinned memory),
 recorded (``engine.capture``: a signature's first dispatch, eager step
 and capture), ``engine.wait`` waits for the sampled ids.  ``worker.park``
 is ``run_worker``'s idle branch.  Every step, recorded or not, adds its
-live rows' query tokens and the tokens its padded rows and columns compute
-to the scheduler's ``tokens_live`` and ``tokens_computed``, and the time
-from its dispatch to its sampled ids on the host (``engine.step`` less
-``Scheduler.complete``) to ``<kind>_ns`` and ``<kind>_dispatches``.
+live rows' query tokens and the token slots it computes, padding included
+(``_tokens_computed``), to the scheduler's ``tokens_live`` and
+``tokens_computed``, and the time from its dispatch to its sampled ids on
+the host (``engine.step`` less ``Scheduler.complete``) to ``<kind>_ns``
+and ``<kind>_dispatches``.
 
 Shutdown runs ``drain()`` — an era-progress-bounded fleet drain that
 provably terminates (every round either frees a block or ticks every era
@@ -96,7 +99,7 @@ from repro_torch.kernels import build
 from repro_torch.models.common import ArchConfig
 
 from .paged_model import (_check_paged_support, init_pools, paged_decode_step,
-                          paged_prefill_chunk)
+                          paged_mixed_step, paged_prefill_chunk)
 
 __all__ = ["ServeEngine"]
 
@@ -398,28 +401,33 @@ class ServeEngine:
                 if not finite.all():
                     failed_rows = [not bool(f) for f in finite]
                 sampled = np.where(finite, arr, 0).astype(np.int32)
-            rows, cols = self._padded_shape(plan)
             self.sched.count_step(
                 tid, plan.kind,
                 len(plan.requests) if plan.kind == "decode" else plan.n_tokens,
-                rows * cols, time.perf_counter_ns() - t0)
+                self._tokens_computed(plan), time.perf_counter_ns() - t0)
             self.sched.complete(plan, sampled, tid, failed_rows=failed_rows)
         return sampled
 
-    def _padded_shape(self, plan) -> Tuple[int, int]:
-        """(rows, columns) of the step a plan's dispatch builds: a decode
-        plan's rows pad to ``max_batch``, a prefill chunk to its pow2
-        bucket, a mixed plan to ``max_batch + 1`` rows of its chunk's
-        bucket (``pad_shapes`` off: the plan's own)."""
-        b = len(plan.requests)
+    def _decode_slots(self, b: int) -> int:
+        """Decode slots of a step with ``b`` decode rows: ``max_batch``
+        (``pad_shapes`` off: ``b``)."""
+        return self.max_batch if self.pad_shapes else b
+
+    def _chunk_bucket(self, n: int) -> int:
+        """Columns of a step's ``n``-token chunk: its pow2 bucket
+        (``pad_shapes`` off: ``n``)."""
+        return 1 << max(0, n - 1).bit_length() if self.pad_shapes else n
+
+    def _tokens_computed(self, plan) -> int:
+        """Token slots the step a plan's dispatch builds computes: a decode
+        plan's decode slots, a prefill chunk's bucket, a mixed plan's
+        decode slots and its chunk's bucket on one axis."""
         if plan.kind == "decode":
-            return (self.max_batch if self.pad_shapes else b), 1
-        c = plan.n_tokens if plan.kind == "prefill" else plan.tokens.shape[1]
-        if self.pad_shapes:
-            c = 1 << max(0, c - 1).bit_length()
+            return self._decode_slots(len(plan.requests))
         if plan.kind == "prefill":
-            return 1, c
-        return (self.max_batch + 1 if self.pad_shapes else b), c
+            return self._chunk_bucket(plan.n_tokens)
+        return (self._decode_slots(plan.n_decode)
+                + self._chunk_bucket(plan.tokens.shape[1]))
 
     def _bucket_width(self, plan, nblk: int, shard: int) -> int:
         """Padded table width for a plan (see ``bucket_policy``)."""
@@ -480,11 +488,14 @@ class ServeEngine:
         """The key of a step of ``kind`` on ``arrays``: the shapes its
         inputs take (padded, the table's and the chunk bucket's fix every
         other one; unpadded, the written tokens and re-coded blocks count
-        too)."""
-        tables = arrays[0]
+        too).  A mixed step's chunk bucket is its token axis less its
+        decode slots (the table's rows less the chunk's)."""
+        tables, tokens = arrays[:2]
         if kind == "decode":
             return ("decode", tables.shape)
-        key = (kind, tables.shape, arrays[1].shape[1])
+        cb = (tokens.shape[1] if kind == "prefill"
+              else len(tokens) - tables.shape[0] + 1)
+        key = (kind, tables.shape, cb)
         if not self.pad_shapes:
             key += tuple(None if a is None else len(a) for a in arrays[-2:])
         return key
@@ -564,7 +575,7 @@ class ServeEngine:
 
     def _dispatch_decode(self, plan) -> np.ndarray:
         b = plan.tables.shape[0]
-        rows, _ = self._padded_shape(plan)
+        rows = self._decode_slots(b)
         with obs.span("engine.inputs"):
             tables = self._bucket_tables(plan, rows)
             lengths, tokens, positions = (plan.lengths, plan.tokens,
@@ -584,7 +595,7 @@ class ServeEngine:
         """One prefill chunk (B == 1), its length padded to a pow2 bucket."""
         n = plan.n_tokens
         ctx = int(plan.lengths[0]) - n  # context BEFORE the chunk
-        _, cb = self._padded_shape(plan)
+        cb = self._chunk_bucket(n)
         with obs.span("engine.inputs"):
             tables = self._bucket_tables(plan, 1)
             tokens = np.zeros((1, cb), np.int32)
@@ -599,61 +610,77 @@ class ServeEngine:
         return self._run_step(plan, paged_prefill_chunk, arrays, 1)
 
     def _dispatch_mixed(self, plan) -> np.ndarray:
-        """Decode rows + one prefill chunk row in ONE dispatch of the chunked
-        step (ragged rows via ``chunk_lens``).  Rows pad to
-        ``max_batch + 1``, columns to the pow2 chunk bucket; pad rows write
-        their token to the scratch slot; pad columns clamp to each row's
-        last valid position."""
-        b, c = plan.tokens.shape
-        rows, cb = self._padded_shape(plan)
+        """Decode rows + one prefill chunk in ONE dispatch of the packed
+        step (``paged_mixed_step``) on one token axis: ``max_batch`` decode
+        slots, the plan's decode rows first and pad slots writing a
+        scratch token to the scratch slot, then the chunk's pow2 bucket,
+        its pad columns clamped to its last valid position (``pad_shapes``
+        off: the decode rows and the chunk's tokens).  The sampled ids come
+        back in the plan's row order."""
+        nd, n = plan.n_decode, plan.tokens.shape[1]
+        d, cb = self._decode_slots(nd), self._chunk_bucket(n)
         with obs.span("engine.inputs"):
-            tables = self._bucket_tables(plan, rows)
-            tokens = np.zeros((rows, cb), np.int32)
-            tokens[:b, :c] = plan.tokens
-            positions = np.zeros((rows, cb), np.int32)
-            positions[:b, :c] = plan.positions
-            if cb > c:
-                positions[:b, c:] = plan.positions[:, c - 1:c]
-            # pad rows: 1 scratch token
-            chunk_lens = np.ones((rows,), np.int32)
-            chunk_lens[:b] = plan.chunk_lens
-            arrays = self._chunk_inputs(plan.shard, tables, tokens,
-                                        positions, chunk_lens)
-        return self._run_step(plan, paged_prefill_chunk, arrays, b)
+            # the plan's chunk row (row nd) goes last, after the pad rows
+            tables = self._bucket_tables(plan, d + 1)
+            tables = tables[np.r_[0:nd, nd + 1:d + 1, nd]]
+            tokens = np.zeros((d + cb,), np.int32)
+            tokens[:nd] = plan.tokens[:nd, 0]
+            tokens[d:d + n] = plan.tokens[nd]
+            positions = np.zeros((d + cb,), np.int32)
+            positions[:nd] = plan.positions[:nd, 0]
+            positions[d:] = plan.positions[nd, np.minimum(np.arange(cb),
+                                                          n - 1)]
+            out_slots = np.r_[0:nd, d + n - 1, nd:d].astype(np.int32)
+            rows = np.minimum(np.arange(d + cb), d)
+            valid = np.arange(d + cb) < d + n
+            # each decode slot writes one block, the chunk spans a few
+            n_dest = d + self._blocks_spanned(cb) + 1
+            arrays = (tables, tokens, positions, out_slots,
+                      *self._write_inputs(plan.shard, tables, rows,
+                                          positions, valid, n_dest))
+        return self._run_step(plan, paged_mixed_step, arrays, nd + 1)
 
     def _chunk_inputs(self, shard, tables, tokens, positions, chunk_lens):
         """``paged_prefill_chunk``'s inputs with the K/V write indices it
         would otherwise derive on the device through host syncs: the (row,
         column) of each written token, its pool block and, for int8 pools,
-        the blocks to re-code (sorted, ``torch.unique``'s order).  Padded
+        the blocks to re-code (``_write_inputs``).  Padded
         (``pad_shapes``), every (row, column) is written, a padded one to
-        the shard's scratch slot, which the block pool never hands out (the
-        reference drops those writes), and the re-coded blocks are padded
-        with that slot to a length fixed by (rows, columns, block size):
-        every input's shape is then the step's signature's.  Unpadded, the
-        valid tokens only."""
+        the shard's scratch slot; unpadded, the valid tokens only."""
         rows, cols = tokens.shape
         valid = np.arange(cols)[None, :] < chunk_lens[:, None]
-        slot = np.minimum(positions // self.block_size, tables.shape[1] - 1)
-        blocks = np.take_along_axis(tables, slot, axis=1)
-        pad_slot = self._shard_sizes[shard]
         if self.pad_shapes:
             wr, wc = np.divmod(np.arange(rows * cols), cols)
-            wblk = np.where(valid, blocks, pad_slot).ravel()
         else:
             wr, wc = np.nonzero(valid)
-            wblk = blocks[wr, wc]
+        n_dest = rows * self._blocks_spanned(cols) + 1
+        wblk, dest = self._write_inputs(shard, tables, wr, positions[wr, wc],
+                                        valid[wr, wc], n_dest)
+        return (tables, tokens, positions, chunk_lens, wr, wc, wblk, dest)
+
+    def _blocks_spanned(self, cols: int) -> int:
+        """Pool blocks ``cols`` consecutive positions span at most."""
+        return (cols + self.block_size - 2) // self.block_size + 1
+
+    def _write_inputs(self, shard, tables, rows, positions, valid, n_dest):
+        """The pool block of each written token (table row ``rows``, at
+        ``positions``), an invalid one's the shard's scratch slot, which the
+        block pool never hands out (the reference drops those writes), and
+        for int8 pools the blocks to re-code (sorted, ``torch.unique``'s
+        order).  Padded (``pad_shapes``), the re-coded blocks are padded
+        with the scratch slot to ``n_dest``, a length fixed by the step's
+        shape (at least the blocks the valid tokens span, plus one)."""
+        pad_slot = self._shard_sizes[shard]
+        slot = np.minimum(positions // self.block_size, tables.shape[1] - 1)
+        wblk = np.where(valid, tables[rows, slot], pad_slot).astype(np.int32)
         dest = None
         if self.kv_dtype == "int8":
-            dest = np.unique(blocks[valid])
+            dest = np.unique(wblk)
             if self.pad_shapes:
-                # a row's valid tokens span at most (cols + bs - 2) // bs + 1
-                # blocks; one more for the scratch slot
-                per_row = (cols + self.block_size - 2) // self.block_size + 1
-                padded = np.full(rows * per_row + 1, pad_slot, np.int32)
+                padded = np.full(n_dest, pad_slot, np.int32)
                 padded[:len(dest)] = dest
                 dest = padded
-        return (tables, tokens, positions, chunk_lens, wr, wc, wblk, dest)
+        return wblk, dest
 
     # ------------------------------------------------------------- drain
     def drain(self, tid: int) -> int:

@@ -1,4 +1,4 @@
-"""Decode/prefill steps that read and write the PAGED KV pool.
+"""Decode, prefill and mixed steps that read and write the PAGED KV pool.
 
 The device side of the WFE adaptation, ported from
 ``repro.serve.paged_model``: the host scheduler names blocks via tables;
@@ -236,6 +236,92 @@ def paged_prefill_chunk(cfg, params, pools, tables, tokens, positions,
         x = _ffn(cfg, bp, x)
     # unembed ONLY each row's last valid token
     last = x[rows, (chunk_lens - 1).long()][:, None]  # (B, 1, d)
+    last = apply_norm(cfg, params["final_norm"], last)
+    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    logits = unembed(cfg, head, last)[:, 0]
+    return logits, pools
+
+
+def paged_mixed_step(cfg, params, pools, tables, tokens, positions,
+                     out_slots, write_blocks=None, dest_blocks=None):
+    """Decode tokens and one prompt chunk in one step on ONE token axis.
+
+    The axis holds D decode slots, then the chunk's C columns: T = D + C
+    tokens go through the embedding, every layer's norms, projections,
+    rotary, K/V write and FFN once, and the attention runs in two calls on
+    the same pools: the decode kernel over the D decode slots (as in
+    ``paged_decode_step``) and the chunk kernel over the chunk as one
+    (1, C) row (as in ``paged_prefill_chunk``).
+
+    tables (D + 1, nblk) i32: row i < D is decode slot i's table, row D
+    the chunk's.  tokens/positions (T,) i32: slot i < D is decode slot i's
+    token at its absolute position (a pad slot: token 0 at position 0 over
+    a table of the scratch slot); slots D.. are the chunk's tokens at
+    their absolute positions, padded columns clamped to the chunk's last
+    valid position.  out_slots (D + 1,) i32: the slot whose logits each
+    output row takes; the chunk's last valid slot is its largest entry.
+    The K/V writes: ``write_blocks`` (T,) the pool block each slot's K/V
+    goes to (at offset position % bs), a padded column's to a scratch
+    block no request reads, and for int8 pools ``dest_blocks`` the blocks
+    to re-code, holding every value of ``write_blocks`` (see
+    ``paged_prefill_chunk``).  Left None, they are derived here from the
+    tables for the decode slots and the chunk's valid columns only, at
+    the cost of a host sync each (``nonzero``, ``unique``).
+    Returns (logits of the ``out_slots`` (D + 1, V) f32, pools) — the pools
+    written in place.
+    """
+    _check_paged_support(cfg)
+    t = tokens.shape[0]
+    d = tables.shape[0] - 1
+    dev = tokens.device
+    bs = pools["k"].shape[2]
+    kh, hd, h = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_heads
+    g = h // kh
+    if write_blocks is None:
+        slots = torch.arange(t, device=dev)
+        row = torch.clamp(slots, max=d)
+        col = torch.clamp(positions // bs, max=tables.shape[1] - 1).long()
+        written = (slots <= out_slots.max()).nonzero(as_tuple=True)[0]
+        blk = tables[row, col].long()[written]
+    else:
+        written = None
+        blk = write_blocks.long()
+    wpos = positions if written is None else positions[written]
+    off = (wpos % bs).long()
+    dest = None
+    if "k_scale" in pools:
+        dest = (torch.unique(blk) if dest_blocks is None
+                else dest_blocks.long())
+    # per-slot LIVE table slots: a decode token's own block, and the
+    # chunk's last column's (its last valid position)
+    dec_pos = positions[:d]
+    dec_lengths = dec_pos + 1
+    dec_live = (dec_pos // bs + 1).to(torch.int32)
+    chunk_tables = tables[d:]
+    chunk_pos = positions[d:][None]
+    chunk_live = (positions[t - 1:] // bs + 1).to(torch.int32)
+    scale = 1.0 / math.sqrt(hd)
+    x = embed_tokens(cfg, params["embed"], tokens[None])
+    for l, bp in _layers(cfg, params):
+        hn = apply_norm(cfg, bp["norm_mix"], x)
+        q, k1, v1 = _qkv(cfg, bp["mix"], hn, positions[None])
+        k_rows, v_rows = k1[0], v1[0]
+        if written is not None:
+            k_rows, v_rows = k_rows[written], v_rows[written]
+        k_pool, v_pool, k_sc, v_sc = _write_kv(pools, l, blk, off, k_rows,
+                                               v_rows, dest=dest)
+        qg = q.reshape(t, kh, g, hd)
+        out_dec = paged_decode_attention(
+            qg[:d].contiguous(), k_pool, v_pool, tables[:d], dec_lengths,
+            dec_live, k_sc, v_sc, scale=scale)
+        out_chunk = paged_chunk_attention(
+            qg[None, d:].contiguous(), k_pool, v_pool, chunk_tables,
+            chunk_pos, chunk_live, k_sc, v_sc, scale=scale)
+        out = torch.cat([out_dec, out_chunk[0]]).reshape(1, t, h * hd)
+        x = x + matmul(out.to(x.dtype), bp["mix"]["wo"])
+        x = _ffn(cfg, bp, x)
+    # unembed ONLY the decode slots and the chunk's last valid token
+    last = x[0, out_slots.long()][:, None]  # (D + 1, 1, d)
     last = apply_norm(cfg, params["final_norm"], last)
     head = params["embed"] if cfg.tie_embeddings else params["head"]
     logits = unembed(cfg, head, last)[:, 0]

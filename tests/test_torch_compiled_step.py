@@ -19,7 +19,9 @@ check what makes that so, with the smoke stablelm-3b carried over from
     ``nonzero``, ``unique``, ``.item()`` or ``int(tensor)`` left on the
     path raises there, as the step's derived indices do;
 (d) over prefix-aliased tables and ragged chunks, with f32 and int8
-    pages, the static inputs leave every live page and scale bitwise what
+    pages, in prefill chunks and packed mixed steps
+    (``paged_mixed_step``), the static inputs leave every live page and
+    scale bitwise what
     the derived path writes, with the same sampled ids, and the run's
     tokens and stats equal ``repro``'s;
 (e) the capture tally of ``kernels.build``: a capture counts nothing, each
@@ -217,27 +219,35 @@ def test_static_chunk_inputs_equal_derived_path(kv):
     first = set()
 
     def spy(plan, step, arrays, b):
-        if step is not paged_prefill_chunk:
+        if step is paged_model.paged_decode_step:
             return real(plan, step, arrays, b)
         pools = engine._shard_pools[plan.shard]
         derived = {k: v.clone() for k, v in pools.items()}
+        # the step's inputs without its write indices: (tables, tokens,
+        # positions, chunk_lens) of a prefill chunk, (tables, tokens,
+        # positions, out_slots) of the packed mixed step
         base = [torch.from_numpy(np.ascontiguousarray(a, np.int32))
                 for a in arrays[:4]]
-        logits, _ = paged_prefill_chunk(cfg, params, derived, *base)
+        logits, _ = step(cfg, params, derived, *base)
         ids = real(plan, step, arrays, b)
         pad = engine._shard_sizes[plan.shard]  # the scratch slot
         for name, t in pools.items():
             assert torch.equal(t[:, :pad], derived[name][:, :pad]), name
         assert np.array_equal(ids, torch.argmax(logits, -1)[:b].numpy())
         checked[plan.kind] += 1
-        # a request's first step is its first chunk: past position 0, its
-        # table starts with pages the prefix cache aliased into it
-        for row, req in enumerate(plan.requests):
-            if req.rid not in first:
-                first.add(req.rid)
-                checked["aliased"] += int(arrays[2][row, 0] > 0)
-        # ragged: a live row with padded columns
-        checked["ragged"] += int(np.any(arrays[3][:b] < arrays[1].shape[1]))
+        # a request's first step is its first chunk (the plan's last row):
+        # past position 0, its table starts with pages the prefix cache
+        # aliased into it.  Ragged: a chunk with padded columns
+        tables, tokens, positions, last = arrays[:4]
+        if step is paged_prefill_chunk:
+            start = positions[0, 0]
+            checked["ragged"] += int(last[0] < tokens.shape[1])
+        else:
+            start = positions[tables.shape[0] - 1]
+            checked["ragged"] += int(last.max() < len(tokens) - 1)
+        if plan.requests[-1].rid not in first:
+            first.add(plan.requests[-1].rid)
+            checked["aliased"] += int(start > 0)
         return ids
 
     engine._run_step = spy

@@ -33,7 +33,9 @@ and the f32 tile's 64-row and one-warp CTAs bitwise.  The engine's dispatch
 is run with the CUDA sync debug mode at "error" while its lock is held.
 The engine's compiled steps (one CUDA graph per shard and signature) give
 the eager steps' tokens and launch counts bitwise, with bf16 and int8
-pages, over decode, mixed and prefill steps; the ``pools`` setter and
+pages, over decode, mixed and prefill steps; the packed mixed step
+replays the eager one's ids bitwise and matches the chunk step on the
+plan's ragged rows within the bf16 limit; the ``pools`` setter and
 ``clear_compile_caches()`` drop the graphs; a capture holds while another
 thread waits on the shard's stream, scans eras and frees pinned memory.
 The trainer's compiled step (one CUDA graph per step signature) leaves
@@ -1145,6 +1147,56 @@ def test_dispatch_makes_no_host_sync(dev, kv_dtype):
         assert {"prefill", "mixed", "decode"} <= set(kinds), kinds
         outs.append([r.generated for r in reqs])
     assert outs[0] == outs[1]
+
+
+def test_packed_mixed_step_replays_eager_and_ragged(dev):
+    """Every mixed plan of a bf16 engine runs the packed step (decode slots
+    and the chunk's bucket on one token axis): replayed from its graph it
+    gives the eager packed step's ids bitwise, and its logits match the
+    chunk step on the plan's ragged (B, C) rows within the bf16 limit."""
+    from repro_torch.serve.paged_model import (paged_mixed_step,
+                                               paged_prefill_chunk)
+
+    engine = _smoke_engine(dev)
+    cfg, params = engine.cfg, engine.params
+    real = engine._run_step
+    seen = {"mixed": 0, "replayed": 0}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    def spy(plan, step, arrays, b):
+        if step is not paged_mixed_step:
+            return real(plan, step, arrays, b)
+        assert arrays[0].shape[0] == engine.max_batch + 1
+        torch.cuda.synchronize()
+        pools = engine._shard_pools[plan.shard]
+        eager = {k: v.clone() for k, v in pools.items()}
+        lg, _ = paged_mixed_step(cfg, params, eager,
+                                 *[None if a is None else t(a)
+                                   for a in arrays])
+        ragged = {k: v.clone() for k, v in pools.items()}
+        lg_ragged, _ = paged_prefill_chunk(
+            cfg, params, ragged, t(plan.tables), t(plan.tokens),
+            t(plan.positions), t(plan.chunk_lens))
+        want = torch.argmax(lg, -1)[:b].cpu().numpy()
+        close = torch.allclose(lg[:b], lg_ragged, rtol=2e-2, atol=2e-2)
+        torch.cuda.synchronize()
+        key = engine._signature(plan.kind, arrays)
+        seen["replayed"] += int((plan.shard, key) in engine._graphs)
+        ids = real(plan, step, arrays, b)
+        assert np.array_equal(ids, want)
+        assert close, (lg[:b] - lg_ragged).abs().max().item()
+        seen["mixed"] += 1
+        return ids
+
+    engine._run_step = spy
+    tid = engine.pool.register_thread()
+    reqs = [engine.submit(p * 3, 6) for p in SHARD_PROMPTS * 2]
+    stats = engine.run(tid)
+    assert stats["completed"] == len(reqs)
+    assert engine.pool.unreclaimed() == 0
+    assert seen["mixed"] > 0 and seen["replayed"] > 0, seen
 
 
 def _scaled_close(got, want, rel_rms=7e-3) -> bool:

@@ -164,11 +164,12 @@ def test_a_span_maps_inside_its_record_function_bracket():
 
 def test_engine_steps_carry_children_rows_and_tokens(engine_parts):
     """Three 2-token prompts at max_batch 4, chunk 4: a prefill step, two
-    mixed steps of 5 padded rows x 2 columns (live 1 + 2, then 2 + 2), then
-    a decode step of 3 live rows of 4."""
+    mixed steps of 4 decode slots and a chunk bucket of 2 on one token
+    axis (live 1 + 2, then 2 + 2), then a decode step of 3 live rows of
+    4."""
     engine = _engine(engine_parts)
     tid = engine.pool.register_thread()
-    want = [("prefill", 2, 2), ("mixed", 3, 10), ("mixed", 4, 10),
+    want = [("prefill", 2, 2), ("mixed", 3, 6), ("mixed", 4, 6),
             ("decode", 3, 4)]
     with obs.enable():
         for p in ([5, 9], [11, 3], [7, 1]):
